@@ -1,0 +1,58 @@
+"""The PyTorch port stands alone: no import of jax, flax or the JAX package.
+
+Checked twice: an AST scan of every module of ``yolo_continuous_tpu_torch``
+and of ``chip_smoke.py``, and a clean subprocess that imports the whole
+port and then looks at ``sys.modules``. Importing the port must also leave
+CUDA uninitialised and build nothing (kernels are built at first launch).
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "yolo_continuous_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yolo_continuous_tpu")
+FILES = sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_every_port_module_is_scanned():
+    assert len(FILES) > 15 and "yolo_continuous_tpu_torch/detect_api.py" in FILES
+
+
+@pytest.mark.parametrize("rel", FILES)
+def test_no_forbidden_import(rel):
+    bad = sorted(set(_imported_roots(REPO / rel)) & set(FORBIDDEN))
+    assert not bad, f"{rel} imports {bad}"
+
+
+_PROBE = """
+import sys
+import yolo_continuous_tpu_torch
+import yolo_continuous_tpu_torch.detect_api, yolo_continuous_tpu_torch.detect
+import yolo_continuous_tpu_torch.tools.jax_weights
+import yolo_continuous_tpu_torch.kernels.decode, yolo_continuous_tpu_torch.kernels.nms
+import torch
+from yolo_continuous_tpu_torch.kernels import _build
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r} or m == "triton")
+print("BAD", bad, "CUDA_INIT", torch.cuda.is_initialized(), "LIBS", len(_build._libs))
+"""
+
+
+def test_port_import_pulls_in_no_jax_and_no_cuda():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    p = subprocess.run([sys.executable, "-c", _PROBE.format(forbidden=set(FORBIDDEN))],
+                       cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert p.stdout.strip().splitlines()[-1] == "BAD [] CUDA_INIT False LIBS 0", p.stdout

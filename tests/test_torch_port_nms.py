@@ -1,0 +1,141 @@
+"""PyTorch port NMS (plain version of kernels K1/K2) vs the JAX package.
+
+Keep-sets must be exactly equal to the JAX sequential greedy oracle, the
+Pallas K1 kernel and the Pallas K2 kernel (both in interpret mode), at
+K = 300 (K1's range) and K = 1500 (K2's range).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from _torch_port import min_score_gap
+from yolo_continuous_tpu.kernels.nms_pallas import pallas_suppress, pallas_suppress_tiled
+from yolo_continuous_tpu.ops import nms as jax_nms
+from yolo_continuous_tpu.ops.boxes import box_iou as jax_box_iou
+from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
+from yolo_continuous_tpu_torch.ops import nms
+from yolo_continuous_tpu_torch.ops.boxes import box_iou
+
+
+def _case(seed, n, nc=3):
+    """Score-sorted random boxes, as tests/test_nms_pallas.py builds them."""
+    rs = np.random.RandomState(seed)
+    cxy = rs.rand(n, 2)
+    wh = rs.rand(n, 2) * 0.3 + 0.02
+    boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
+    order = np.argsort(-rs.rand(n))
+    return boxes[order], rs.randint(0, nc, n)[order].astype(np.int32), np.ones(n, bool)
+
+
+def _chain(n, step=5.0):
+    """Each box overlaps the next (IoU 1/3 at step 5): greedy keeps every other."""
+    x = np.arange(n, dtype=np.float32) * step
+    boxes = np.stack([x, np.zeros(n), x + 10.0, np.full(n, 10.0)], -1).astype(np.float32)
+    return boxes, np.zeros(n, np.int32), np.ones(n, bool)
+
+
+def _port_keep_sets(boxes, classes, valid, thr):
+    b, c, v = torch.from_numpy(boxes), torch.from_numpy(classes), torch.from_numpy(valid)
+    iou = box_iou(b, b)
+    same = c[:, None] == c[None, :]
+    return {"fixpoint": nms._fixpoint_suppress(iou, same, v, thr),
+            "greedy": nms._greedy_suppress(iou, same, v, thr),
+            "suppress": nms.suppress(b[None], c[None], v[None], thr)[0]}
+
+
+def _jax_keep_sets(boxes, classes, valid, thr):
+    b, c, v = jnp.asarray(boxes), jnp.asarray(classes), jnp.asarray(valid)
+    same = c[:, None] == c[None, :]
+    return {"jax_greedy": jax_nms._greedy_suppress(jax_box_iou(b, b), same, v, thr),
+            "pallas_k1": pallas_suppress(b, c, v, thr, interpret=True),
+            "pallas_k2": pallas_suppress_tiled(b, c, v, thr, interpret=True)}
+
+
+@pytest.mark.parametrize("case", ["random", "chain"])
+@pytest.mark.parametrize("k", [300, 1500])
+def test_keep_sets_equal_jax_and_pallas(k, case):
+    boxes, classes, valid = _case(k, k) if case == "random" else _chain(k)
+    thr = 0.5 if case == "random" else 0.3
+    ref = {n: np.asarray(v) for n, v in _jax_keep_sets(boxes, classes, valid, thr).items()}
+    want = ref["jax_greedy"]
+    assert 0 < want.sum() < k                            # suppression did real work
+    if case == "chain":
+        np.testing.assert_array_equal(want, np.arange(k) % 2 == 0)
+    for name, keep in {**ref, **_port_keep_sets(boxes, classes, valid, thr)}.items():
+        np.testing.assert_array_equal(np.asarray(keep), want, err_msg=name)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_fixpoint_equals_greedy(seed):
+    boxes, classes, valid = _case(100 + seed, 200)
+    valid[::7] = False
+    keeps = _port_keep_sets(boxes, classes, valid, 0.45)
+    assert torch.equal(keeps["fixpoint"], keeps["greedy"])
+    assert torch.equal(keeps["suppress"], keeps["greedy"])
+
+
+def _preds(seed, bs=2, n=3000, nc=4):
+    """Random rows whose scores are spread at least 1/n apart: obj is a
+    permutation of a grid and one class column per row is exactly 1."""
+    rs = np.random.RandomState(seed)
+    p = rs.rand(bs, n, 5 + nc).astype(np.float32)
+    p[..., 2:4] = p[..., 2:4] * 0.2 + 0.02
+    p[..., 4] = np.stack([rs.permutation(n) for _ in range(bs)]) / n + 0.5 / n
+    p[..., 5:] *= 0.9
+    p[np.arange(bs)[:, None], np.arange(n)[None], 5 + rs.randint(0, nc, (bs, n))] = 1.0
+    return p
+
+
+@pytest.mark.parametrize("per_class", [True, False])
+@pytest.mark.parametrize("max_det", [300, 1500])
+def test_batched_nms_matches_jax(max_det, per_class):
+    """Score, threshold, top-k, xywh->xyxy and suppression together; both
+    sides take the kernel dispatch of their own CPU path."""
+    p = _preds(max_det + per_class)
+    score = p[..., 4] * p[..., 5:].max(-1)
+    assert min_score_gap(np.where(score >= 0.3, score, -1.0), max_det) > 1e-5   # no top-k ties
+    ours = [t.numpy() for t in nms.batched_nms(torch.from_numpy(p), 0.3, 0.45, max_det,
+                                               per_class)]
+    ref = [np.asarray(t) for t in jax_nms.batched_nms(jnp.asarray(p), 0.3, 0.45, max_det,
+                                                      per_class)]
+    keep = ref[3]
+    np.testing.assert_array_equal(ours[3], keep)
+    assert 0 < keep.sum() < keep.size
+    np.testing.assert_allclose(ours[0][keep], ref[0][keep], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(ours[1][keep], ref[1][keep])
+    np.testing.assert_array_equal(ours[2][keep], ref[2][keep])
+
+
+def test_nms_single_matches_jax():
+    p = _preds(7, bs=1, n=800)[0]
+    ours = nms.nms_single(torch.from_numpy(p), 0.2, 0.45, 1000)
+    ref = jax_nms.nms_single(jnp.asarray(p), 0.2, 0.45, 1000)
+    assert ours[0].shape == (1000, 4)                     # padded to max_det
+    keep = np.asarray(ref[3])
+    np.testing.assert_array_equal(ours[3].numpy(), keep)
+    np.testing.assert_allclose(ours[0].numpy()[keep], np.asarray(ref[0])[keep], atol=1e-6)
+
+
+def test_yolo_correct_boxes_match_jax():
+    rs = np.random.RandomState(3)
+    xy = rs.rand(2, 5, 2).astype(np.float32) * 0.6
+    b = np.concatenate([xy, xy + 0.3], -1)
+    shapes = np.array([[480, 640], [720, 405]], np.float32)
+    for letterbox in (True, False):
+        ref = np.asarray(jax_nms.yolo_correct_boxes(jnp.asarray(b[0]), (640, 640),
+                                                    (480, 640), letterbox))
+        ours = nms.yolo_correct_boxes(torch.from_numpy(b[0]), (640, 640), (480, 640), letterbox)
+        np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-6, atol=1e-4)
+        np.testing.assert_allclose(
+            nms.yolo_correct_boxes_np(b, (640, 640), shapes, letterbox),
+            jax_nms.yolo_correct_boxes_np(b, (640, 640), shapes, letterbox), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kernel", [nms_suppress, nms_suppress_tiled])
+def test_nms_kernels_take_cuda_tensors_only(kernel):
+    boxes, classes, valid = (torch.from_numpy(a)[None] for a in _case(0, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(boxes, classes, valid, 0.5)
+    assert kernel.launches == 0

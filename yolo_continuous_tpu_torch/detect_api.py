@@ -1,0 +1,176 @@
+"""Single-image / batched inference API on PyTorch.
+
+Counterpart of ``yolo_continuous_tpu/detect_api.py`` (``Detector``,
+``TargetBox``, ``generate_colors``, ``predict``): forward, grid decode
+(kernel K3 on CUDA), class-aware NMS (kernels K1/K2 on CUDA), letterbox
+un-mapping. Everything up to the fixed-size NMS result stays on the device.
+
+Runs on ``cuda`` by default and raises if there is no CUDA device; pass
+``device="cpu"`` for the plain CPU path (the tests do). Not ported yet:
+``fuse``, ``quantize``, ``fused_tails``, ``calibrate``, ``reload_weights``
+and flax ``.msgpack`` checkpoints (ROADMAP.md).
+
+Deliberate fix kept from the JAX package: prediction runs on RGB, as
+training does (the reference predicts on cv2's BGR, ``detect.py:23``).
+"""
+from __future__ import annotations
+
+import colorsys
+import os
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .config.plan import TrainPlan, check_file, cvt_cfg
+from .nn.builder import YoloModel, build_model_spec
+from .ops.decode import decode_outputs
+from .ops.nms import batched_nms, yolo_correct_boxes
+from .ops.preprocess import cv2, letterbox
+
+
+@dataclass
+class TargetBox:
+    """Detection record; utils/target_box.py:8-38."""
+    left: int
+    top: int
+    right: int
+    bottom: int
+    score: float
+    label: str
+    color: Tuple[int, int, int]
+
+    def get_topleft(self):
+        return (self.left, self.top)
+
+    def get_bottomright(self):
+        return (self.right, self.bottom)
+
+    def __str__(self):
+        info = "-" * 20 + type(self).__name__ + "-" * 20 + "\r\n"
+        for key, value in self.__dict__.items():
+            info += "%20s :\t%s\r\n" % (key, value)
+        return info
+
+
+def generate_colors(n: int) -> List[Tuple[int, int, int]]:
+    """HSV wheel label colors; utils/helper_cv.py:60-64."""
+    out = []
+    for i in range(n):
+        r, g, b = colorsys.hsv_to_rgb(i / n, 1.0, 1.0)
+        out.append((int(r * 255), int(g * 255), int(b * 255)))
+    return out
+
+
+def resolve_device(device) -> torch.device:
+    """``cuda`` (the default of every entry point) or ``cpu``; no quiet fallback."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; the port runs on the GPU by "
+                           "default; pass device='cpu' for the plain CPU path")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {device}")
+    return device
+
+
+class Detector:
+    """A plan's model with its weights, serving end-to-end inference.
+
+    Weights come from ``state_dict``, else from a ``.pth`` next to the
+    plan's ``save_path``, else a random init seeded by ``seed``. The body
+    runs in ``dtype`` (bf16 on CUDA, fp32 on the CPU, as
+    ``detect_api.py:93-94``); the head logits are fp32.
+
+    On CUDA, TF32 is switched off for cuDNN convolutions and cuBLAS
+    matmuls: the fp32 head convolution then keeps fp32 products, as the
+    JAX reference does (with a bf16 body its inputs are bf16 values, whose
+    products TF32 would also hold exactly; with an fp32 body they are not).
+    """
+
+    def __init__(self, plan: TrainPlan, device="cuda", dtype: Optional[torch.dtype] = None,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None, seed: int = 0):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.plan = plan
+        self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda" else torch.float32)
+        self.spec = build_model_spec(cvt_cfg(plan.model_cfg), plan.image_chan, plan.anchors,
+                                     plan.num_labels, plan.anchors_mask)
+        self.nl = len(self.spec.strides)
+        model = YoloModel(self.spec)
+        if state_dict is None:
+            pth = os.path.splitext(plan.save_path)[0] + ".pth"
+            if os.path.exists(pth):
+                state_dict = torch.load(pth, map_location="cpu", weights_only=True)
+        if state_dict is not None:
+            model.load_state_dict(state_dict, strict=True)
+        else:
+            model.init_weights(torch.Generator().manual_seed(seed))
+        self.model = model.to(self.device).eval().set_dtype(self.dtype)
+
+    @torch.inference_mode()
+    def forward(self, images) -> List[torch.Tensor]:
+        """images (bs, H, W, 3) float 0..1 -> raw maps [(bs, h, w, na, no)] fp32."""
+        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.contiguous_format)
+        return self.model(x)[: self.nl]
+
+    @torch.inference_mode()
+    def __call__(self, images, conf_thres: float = 0.5, nms_thres: float = 0.4,
+                 max_det: int = 300):
+        """images (bs, H, W, 3) float 0..1 -> (boxes_xyxy_norm, scores,
+        classes, valid), fixed-shape, on the detector's device."""
+        pred = decode_outputs(self.forward(images), self.spec.anchors, self.spec.strides,
+                              normalized=True)  # (bs, total, 5+nc)
+        return batched_nms(pred, conf_thres, nms_thres, max_det)
+
+
+def predict(cfg_file: str, image_path: str, conf_threshold: float = 0.3,
+            nms_threshold: float = 0.3, detector: Optional[Detector] = None,
+            save_path: Optional[str] = None, show: bool = False,
+            device="cuda") -> List[TargetBox]:
+    """Public API mirroring ``detect.py:208-265``: prints and returns the
+    TargetBox records; optionally renders boxes to ``save_path``."""
+    if cv2 is None:
+        raise RuntimeError("predict needs OpenCV (cv2) to read and draw images")
+    plan = TrainPlan(check_file(cfg_file))
+    det = detector or Detector(plan, device=device)
+    size = (plan.image_size, plan.image_size)
+
+    bgr = cv2.imread(image_path)
+    if bgr is None:
+        raise FileNotFoundError(image_path)
+    rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+    img, _, _ = letterbox(rgb, size, color=(114, 114, 114), scale_fill=False)
+    images = torch.from_numpy(img).float()[None] / 255.0
+
+    boxes, scores, classes, valid = det(images, conf_threshold, nms_threshold)
+    boxes = yolo_correct_boxes(boxes[0], size, bgr.shape[:2], True).cpu().numpy()
+    scores, classes, valid = scores[0].cpu().numpy(), classes[0].cpu().numpy(), valid[0].cpu().numpy()
+
+    colors = generate_colors(plan.num_labels)
+    target_boxes: List[TargetBox] = []
+    h0, w0 = bgr.shape[:2]
+    for i in np.where(valid)[0]:
+        y1, x1, y2, x2 = boxes[i]  # yolo_correct_boxes emits y1x1y2x2
+        tb = TargetBox(max(0, int(np.floor(x1))), max(0, int(np.floor(y1))),
+                       min(w0, int(np.floor(x2))), min(h0, int(np.floor(y2))),
+                       float(scores[i]), plan.labels[int(classes[i])], colors[int(classes[i])])
+        print(tb)
+        target_boxes.append(tb)
+
+    if save_path or show:
+        canvas = bgr.copy()
+        for tb in target_boxes:
+            cv2.rectangle(canvas, tb.get_topleft(), tb.get_bottomright(), tb.color, 1)
+            info = "{} {:.2f}".format(tb.label, tb.score)
+            cv2.putText(canvas, info, (tb.left, max(tb.top - 2, 10)),
+                        cv2.FONT_HERSHEY_PLAIN, 1, (255, 255, 255))
+        if save_path:
+            cv2.imwrite(save_path, canvas)
+        if show:  # pragma: no cover (headless env)
+            cv2.imshow("Predict", canvas)
+            cv2.waitKey()
+    return target_boxes

@@ -1,0 +1,227 @@
+"""The yolov7 / yolov7-tiny subset of the module zoo, in PyTorch (NCHW).
+
+Counterpart of ``yolo_continuous_tpu/nn/layers.py``. Module and attribute
+names follow the torch reference (``nets/common.py``), so the state_dict
+keys are the ones ``tools/torch_import.export_state_dict`` writes:
+``conv.weight``, ``bn.running_var``, ``rbr_dense.0.weight``, ...
+
+Numerics follow the JAX package, not torch defaults, where they differ:
+
+- BatchNorm at inference folds its statistics as ``_normalize`` does
+  (``layers.py:263-266``): ``inv = scale * rsqrt(var + 1e-5)`` and
+  ``shift = bias - mean * inv`` in fp32, then ``x * inv + shift`` in the
+  body dtype.
+- ``LogitConv`` (``layers.py:160-193``) rounds input and weight to the body
+  dtype but multiplies and accumulates in fp32, so the head logits are
+  never rounded to bf16.
+- ``sp`` pads with -inf and ``sp_pyramid`` cascades the (5, 9, 13) ladder
+  (``layers.py:324-361``); the values equal the direct pools.
+
+Parameters and BN statistics are fp32. ``YoloModel.set_dtype`` casts the
+body's plain convolutions to the body dtype (bf16 on CUDA).
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# True -> SiLU (the reference default), a str name, or ("leaky_relu", slope)
+# parsed from YAML strings like "nn.LeakyReLU(0.1)".
+ActSpec = Union[bool, None, str, Tuple[str, float]]
+
+BN_EPS = 1e-5
+
+
+def autopad(k: int, p: Optional[int] = None) -> int:
+    """'same' padding for odd kernels; mirrors nets/common.py:7-11."""
+    if p is None:
+        p = k // 2 if isinstance(k, int) else [x // 2 for x in k]
+    return p
+
+
+def apply_act(x: torch.Tensor, act: ActSpec) -> torch.Tensor:
+    """The activations yolov7 and yolov7-tiny use: SiLU, LeakyReLU(slope)."""
+    if act is True or act == "silu":
+        return F.silu(x)
+    if isinstance(act, tuple) and act[0] == "leaky_relu":
+        return F.leaky_relu(x, negative_slope=act[1])
+    if act in (False, None, "identity"):
+        return x
+    raise NotImplementedError(f"activation {act!r} is not ported yet "
+                              "(ROADMAP.md Queue 1 item 15)")
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with the JAX package's inference fold (eps 1e-5).
+
+    Training mode is torch's own batch norm; the train slice of the port
+    will hold it against the JAX statistics (ROADMAP Queue 3).
+    """
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=BN_EPS, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(x)
+        inv = self.weight * torch.rsqrt(self.running_var + self.eps)
+        shift = self.bias - self.running_mean * inv
+        return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+class LogitConv(nn.Conv2d):
+    """1x1 detection-head conv: products of body-dtype values, fp32 logits.
+
+    Input and weight are rounded to ``mult_dtype`` (the body dtype) and then
+    widened to fp32 for the convolution, so the sum and the stored logits
+    are fp32, as ``preferred_element_type=float32`` gives in JAX. A bf16
+    ``F.conv2d`` would round the logits themselves to bf16.
+    """
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__(c1, c2, 1, bias=True)
+        self.mult_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(self.mult_dtype).float()
+        return F.conv2d(x.to(self.mult_dtype).float(), w, self.bias.float())
+
+
+class Conv(nn.Module):
+    """Conv2d + BN + act; nets/common.py:97-109 (no int8 / fused-tail branch)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
+                 p: Optional[int] = None, g: int = 1, act: ActSpec = True):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
+        self.bn = BatchNorm2d(c2)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_act(self.bn(self.conv(x)), self.act)
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """nn.Upsample(None, 2, 'nearest')."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def mp(x: torch.Tensor, k: int = 2) -> torch.Tensor:
+    """MP: maxpool k=s=2; nets/common.py:25-31."""
+    return F.max_pool2d(x, k, k)
+
+
+def sp(x: torch.Tensor, k: int = 3, s: int = 1) -> torch.Tensor:
+    """SP: stride-1 maxpool, same-pad with -inf; nets/common.py:34-40.
+
+    Separable (k,1) then (1,k), as the JAX version; exact for max."""
+    if s == 1 and k > 1:
+        p = k // 2
+        x = F.max_pool2d(x, (k, 1), 1, (p, 0))
+        return F.max_pool2d(x, (1, k), 1, (0, p))
+    return F.max_pool2d(x, k, s, k // 2)
+
+
+def sp_pyramid(x: torch.Tensor, ks: Sequence[int]):
+    """[sp(x, k) for k in ks], as a cascade where the ladder allows it
+    (stride-1 max windows compose by radius addition)."""
+    outs, prev, prev_r = [], x, 0
+    for k in tuple(ks):
+        r = (k - 1) // 2
+        step = r - prev_r
+        if k % 2 == 1 and step > 0:
+            prev = sp(prev, 2 * step + 1)
+            prev_r = r
+            outs.append(prev)
+        else:   # non-monotone/even ladder: direct pool, no cascade
+            outs.append(sp(x, k))
+    return outs
+
+
+def concat(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Concat(dimension=1): channel concat; nets/common.py:54-60."""
+    return torch.cat(list(xs), dim=1)
+
+
+class MP(nn.Module):
+    def __init__(self, k: int = 2):
+        super().__init__()
+        self.k = k
+
+    def forward(self, x):
+        return mp(x, self.k)
+
+
+class SP(nn.Module):
+    def __init__(self, k: int = 3, s: int = 1):
+        super().__init__()
+        self.k, self.s = k, s
+
+    def forward(self, x):
+        return sp(x, self.k, self.s)
+
+
+class Concat(nn.Module):
+    def forward(self, xs):
+        return concat(xs)
+
+
+class Upsample2x(nn.Module):
+    def forward(self, x):
+        return upsample_nearest_2x(x)
+
+
+class SPPCSPC(nn.Module):
+    """CSP-SPP of the yolov7 head; nets/common.py:248-266."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
+                 g: int = 1, e: float = 0.5, k: Tuple[int, ...] = (5, 9, 13),
+                 act: ActSpec = True):
+        super().__init__()
+        c_ = int(2 * c2 * e)
+        self.k = tuple(k)
+        self.cv1 = Conv(c1, c_, 1, 1, act=act)
+        self.cv2 = Conv(c1, c_, 1, 1, act=act)
+        self.cv3 = Conv(c_, c_, 3, 1, act=act)
+        self.cv4 = Conv(c_, c_, 1, 1, act=act)
+        self.cv5 = Conv((1 + len(self.k)) * c_, c_, 1, 1, act=act)
+        self.cv6 = Conv(c_, c_, 3, 1, act=act)
+        self.cv7 = Conv(2 * c_, c2, 1, 1, act=act)
+
+    def forward(self, x):
+        x1 = self.cv4(self.cv3(self.cv1(x)))
+        y1 = self.cv6(self.cv5(concat([x1] + sp_pyramid(x1, self.k))))
+        y2 = self.cv2(x)
+        return self.cv7(concat([y1, y2]))
+
+
+class RepConv(nn.Module):
+    """RepVGG-style 3-branch conv in its train form; nets/common.py:442-614.
+
+    conv3x3+BN + conv1x1+BN + (a bare BN identity if c1 == c2 and s == 1).
+    The deploy form (one fused conv) comes with ``nn/fuse.py``'s port."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1,
+                 p: Optional[int] = None, g: int = 1, act: ActSpec = True,
+                 deploy: bool = False):
+        super().__init__()
+        if k != 3 or autopad(k, p) != 1:
+            raise ValueError("RepConv takes a 3x3 kernel with padding 1")
+        if deploy:
+            raise NotImplementedError(
+                "RepConv deploy form is not ported yet (ROADMAP.md Queue 1 item 15)")
+        self.act = act
+        self.rbr_dense = nn.Sequential(
+            nn.Conv2d(c1, c2, 3, s, 1, groups=g, bias=False), BatchNorm2d(c2))
+        self.rbr_1x1 = nn.Sequential(
+            nn.Conv2d(c1, c2, 1, s, 0, groups=g, bias=False), BatchNorm2d(c2))
+        self.rbr_identity = BatchNorm2d(c1) if (c2 == c1 and s == 1) else None
+
+    def forward(self, x):
+        y = self.rbr_dense(x) + self.rbr_1x1(x)
+        if self.rbr_identity is not None:
+            y = y + self.rbr_identity(x)
+        return apply_act(y, self.act)

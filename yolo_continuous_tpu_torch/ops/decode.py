@@ -1,0 +1,57 @@
+"""Grid/anchor decoding of raw head maps.
+
+Counterpart of ``yolo_continuous_tpu/ops/decode.py`` (``decode_level``,
+``decode_outputs``). Raw maps are ``(bs, h, w, na, no)``; each level
+flattens to ``(bs, h*w*na, no)`` rows in (h, w, na) order, the JAX order
+(``decode.py:51``) that top-k then ranks.
+
+``decode_level`` is the plain PyTorch version of kernel K3
+(``kernels/decode.py``, ``csrc/decode.cu``). ``decode_outputs`` sends CPU
+tensors to it and CUDA tensors to the kernel.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+def decode_level(pred: torch.Tensor, anchors_px: torch.Tensor, stride: float,
+                 normalized: bool = True) -> torch.Tensor:
+    """Decode one level (plain version).
+
+    normalized=True reproduces ``detect.py:76-85`` (fractions of the input
+    image); normalized=False reproduces ``nets/idetect.py:40-43`` (pixels).
+    """
+    bs, h, w, na, no = pred.shape
+    y = 1.0 / (1.0 + torch.exp(-pred.float()))  # sigmoid over everything (detect.py:48)
+    dev = pred.device
+    gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    anchors_f = anchors_px.to(dev, torch.float32) / stride  # feature units (detect.py:42-43)
+    bx = y[..., 0] * 2.0 - 0.5 + gx[None, :, :, None]
+    by = y[..., 1] * 2.0 - 0.5 + gy[None, :, :, None]
+    bw = (y[..., 2] * 2.0) ** 2 * anchors_f[:, 0]
+    bh = (y[..., 3] * 2.0) ** 2 * anchors_f[:, 1]
+    box = torch.stack([bx, by, bw, bh], dim=-1)
+    if normalized:
+        box = box / torch.tensor([w, h, w, h], dtype=torch.float32, device=dev)
+    else:
+        box = box * stride
+    out = torch.cat([box, y[..., 4:]], dim=-1)
+    return out.reshape(bs, h * w * na, no)
+
+
+def decode_outputs(preds: Sequence[torch.Tensor], anchors: Sequence, strides: Sequence[float],
+                   normalized: bool = True) -> torch.Tensor:
+    """All levels -> ``(bs, total, no)``; cf. detect.py:229-230 torch.cat.
+
+    CUDA tensors go through kernel K3; CPU tensors through ``decode_level``."""
+    device = preds[0].device
+    if device.type == "cuda":
+        from ..kernels.decode import decode_outputs_cuda
+        return decode_outputs_cuda(preds, anchors, strides, normalized)
+    if device.type != "cpu":
+        raise ValueError(f"decode runs on CUDA (kernel) or CPU (plain) tensors, got {device}")
+    return torch.cat([decode_level(p, torch.tensor(a, dtype=torch.float32), float(s), normalized)
+                      for p, a, s in zip(preds, anchors, strides)], dim=1)
