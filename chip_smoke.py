@@ -10,27 +10,36 @@ failure exits non-zero before the result line.
 1. build: compiles the port's CUDA kernels (``csrc/*.cu``, one ``nvcc``
    each, in parallel) and prints the seconds and the ptxas report.
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes of the main path: K3 decode on the three yolov7 @640 levels at
-   batch 16; K1 NMS at K = 300 x 16 images; K2 NMS at K = 2048 and 4096. NMS
-   inputs are 25200 random candidates per image cut to the top K (as the
-   JAX bench builds them), plus a chained-overlap case; keep-sets must be
-   identical, decode within its stated tolerance.
-3. reference: the ``Detector`` on CUDA in fp32 against the same seeded
-   ``Detector`` on the CPU (plain versions), yolov7 at 64 px: raw head maps
-   and decoded rows within tolerance, NMS keep-set of the kernel equal to the
-   plain one on the same rows.
-4. main path: ``Detector`` on ``cfg/coco_train.yaml`` (yolov7, 80 classes,
-   640 px), seeded random weights, bf16 body, batch 16, conf 0.25, IoU 0.45:
-   a few requests at max_det 300 and one at max_det 4096 (which takes K2).
-   Launch counters are set to 0 just before and read just after; every
-   kernel must have launched. Stage times come from CUDA events, the
-   host's enqueue time of one request from its clock, and the device's busy
-   share and kernel launches per request from a short profiler window.
+   the shapes of the main paths: K3 decode on the three yolov7 @640 levels
+   at batch 16; K1 NMS at K = 300 x 16 images; K2 NMS at K = 2048 and 4096
+   (NMS inputs are 25200 random candidates per image cut to the top K, as
+   the JAX bench builds them, plus a chained-overlap case; keep-sets must
+   be identical); K4 IBin decode on the three yolov7-IBin @640 levels at
+   batch 16, under the argmax-gap precondition; K5 fused 1x1 conv + BN +
+   SiLU in bf16 at each of the 24 shapes that yolov7 @640 gives it at
+   batch 16, plus fp32 and ragged cases. K5 is also timed against cuDNN's
+   bf16 ``F.conv2d`` of the same products and the port's unfused ``Conv``.
+3. reference: ``Detector``s on CUDA in fp32 against the same seeded
+   ``Detector``s on the CPU (plain versions) at 64 px: yolov7 (raw maps,
+   decoded rows, NMS keep-set of the kernel equal to the plain one on the
+   same rows), yolov7-IBin (the same, K4 rows), ``cfg/net/yolov7-aux.yaml``
+   (all six maps) and yolov7 with ``fused_tails=True`` (maps, through K5).
+4. main paths, each on ``cfg/coco_train.yaml`` (80 classes, 640 px), seeded
+   random weights, bf16 body, batch 16, conf 0.25, IoU 0.45:
+   (default) yolov7 with the Detect head, a few requests at max_det 300 and
+   one at 4096 (which takes K2); (ibin) yolov7 with the head row swapped to
+   IBin; (fused_tails) yolov7 with ``Detector(fused_tails=True)``. Launch
+   counters are set to 0 just before each path and read just after; every
+   kernel of the path must have launched (K4 3 times and K5 24 times a
+   request). Each path prints its stage times from CUDA events and a short
+   profiler window; the default path also the host's enqueue time. Then
+   the three paths' forward and request times, measured in turns.
 
 Before the last line it prints the ``kernels`` JSON line (time, bound,
 launches, error of each kernel) and the card's name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.
 """
+import copy
 import json
 import os
 import subprocess
@@ -41,11 +50,17 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor and bf16
+# dense tensor-core flop/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
 IOU_OPS = 13        # fp32 operations of one IoU test (4 min/max, 4 sub, 2 clamp, mul, add, div)
-DECODE_TOL = 1e-5   # K3 vs plain, normalized rows: expf vs torch.exp differ by ulps
+DECODE_TOL = 1e-5   # K3/K4 vs plain, normalized rows: expf vs torch.exp differ by ulps
+BIN_GAP = 1e-5      # K4 precondition: top two sigmoided bins of every value this far apart
+# K5 vs plain: bf16 within one bf16 ulp (fp32 sums in another order can round
+# across a bf16 boundary); fp32 within fp32 summation-order error
+K5_TOL = {"bf16": dict(rtol=8e-3, atol=1e-3), "fp32": dict(rtol=1e-5, atol=1e-4)}
 BS, SIZE, CONF, IOU = 16, 640, 0.25, 0.45
 
 
@@ -102,7 +117,64 @@ def chain_inputs(k: int):
             torch.ones(1, k, dtype=torch.bool, device="cuda"))
 
 
-def phase_kernels(spec):
+def ibin_maps(g, spec):
+    """Random raw IBin maps at the main path's shapes, as the head gives
+    them (strided views of NCHW outputs), with one random bin of every w/h
+    value raised a logit above the others (the argmax-gap precondition)."""
+    import torch
+    from yolo_continuous_tpu_torch.nn.heads import head_view
+    na, nb = spec.na, spec.bin_count
+    n = nb + 1
+    no = spec.nc + 3 + 2 * n
+    maps = []
+    for s in spec.strides:
+        side = SIZE // s
+        p = torch.randn(BS, side, side, na, no, device="cuda", generator=g) * 2.0
+        for off in (3, 3 + n):
+            bins = p[..., off:off + nb].clamp(-3.0, 3.0)
+            win = torch.randint(0, nb, (BS, side, side, na, 1), device="cuda", generator=g)
+            bins.scatter_(-1, win, bins.amax(-1, keepdim=True) + 1.0)
+            p[..., off:off + nb] = bins
+        nchw = p.permute(0, 3, 4, 1, 2).reshape(BS, na * no, side, side).contiguous()
+        maps.append(head_view(nchw, na, no))
+    return maps
+
+
+def min_bin_gap(maps, nbin: int) -> float:
+    """Smallest gap between the top two sigmoided bins of any w/h value."""
+    import torch
+    gap = float("inf")
+    for m in maps:
+        s = torch.sigmoid(m.double())
+        for off in (3, 3 + nbin + 1):
+            top2 = s[..., off:off + nbin].topk(2, dim=-1).values
+            gap = min(gap, (top2[..., 0] - top2[..., 1]).min().item())
+    return gap
+
+
+def fused_tail_shapes():
+    """(C_in, C_out, H, W) of every K5 call of one yolov7 @640 fused-tail
+    request, in call order, read off a batch-1 forward on the card."""
+    import torch
+    from yolo_continuous_tpu_torch.detect_api import Detector
+    from yolo_continuous_tpu_torch.nn import layers
+    shapes, fn = [], layers.fused_pointwise_conv
+
+    def record(x, w, scale, bias):
+        shapes.append((x.shape[1], w.shape[0], x.shape[2], x.shape[3]))
+        return fn(x, w, scale, bias)
+
+    det = Detector(random_weights_plan(), device="cuda", seed=0, fused_tails=True)
+    layers.fused_pointwise_conv = record
+    try:
+        det.forward(torch.zeros(1, SIZE, SIZE, 3, device="cuda"))
+    finally:
+        layers.fused_pointwise_conv = fn
+    torch.cuda.synchronize()
+    return shapes
+
+
+def phase_kernels(spec, bin_spec, k5_shapes):
     """Each kernel against its plain version at main-path shapes."""
     import torch
     from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda
@@ -135,8 +207,9 @@ def phase_kernels(spec):
         max_abs_err=err,
         ms=cuda_ms(lambda: decode_outputs_cuda(maps, spec.anchors, spec.strides, True)),
         plain_ms=cuda_ms(plain_decode),
-        bound_ms=2 * BS * rows * no * 4 / HBM_BYTES_S * 1e3, bound_by="bytes")
+        bound_ms=2 * BS * rows * no * 4 / HBM_BYTES_S * 1e3, bound_by="bytes", library_ms=None)
     print(f"K3 decode: {BS}x{rows}x{no} max_abs_err {err:.3g} (tol {DECODE_TOL})", flush=True)
+    del maps, got, want, px_got
 
     rs = np.random.RandomState(0)
     cases = {"nms_suppress": [(300, nms_inputs(rs, 300, BS)), (300, dense_inputs(rs, 300, BS)),
@@ -167,34 +240,162 @@ def phase_kernels(spec):
             max_abs_err=err, ms=cuda_ms(lambda: fn(*args, IOU)),
             plain_ms=cuda_ms(lambda: suppress_plain(*args, IOU), iters=5, warmup=1),
             bound_ms=max(ops / FP32_FLOP_S, nbytes / HBM_BYTES_S) * 1e3,
-            bound_by="operations" if ops / FP32_FLOP_S > nbytes / HBM_BYTES_S else "bytes")
+            bound_by="operations" if ops / FP32_FLOP_S > nbytes / HBM_BYTES_S else "bytes",
+            library_ms=None)
         print(f"{name}: timed at K={k} x {b} images", flush=True)
+
+    report["decode_level_bin"] = check_bin_decode(g, bin_spec)
+    report["fused_conv"] = check_fused_conv(g, k5_shapes)
     return report
 
 
-def random_weights_plan():
+def check_bin_decode(g, spec) -> dict:
+    """K4 against decode_level_bin on the yolov7-IBin @640 levels, batch 16."""
+    import torch
+    from yolo_continuous_tpu_torch.kernels.bin_decode import decode_outputs_bin_cuda
+    from yolo_continuous_tpu_torch.ops.decode import decode_level_bin
+    nb = spec.bin_count
+    maps = ibin_maps(g, spec)
+    gap = min_bin_gap(maps, nb)
+    if not gap > BIN_GAP:
+        fail(f"K4 inputs break the argmax-gap precondition: {gap} <= {BIN_GAP}")
+
+    def kernel(normalized=True):
+        return decode_outputs_bin_cuda(maps, spec.anchors, spec.strides, nb, normalized)
+
+    def plain(normalized=True):
+        return torch.cat([decode_level_bin(m, torch.tensor(a), float(s), nb, normalized)
+                          for m, a, s in zip(maps, spec.anchors, spec.strides)], 1)
+
+    got, want = kernel(True), plain(True)
+    err = (got - want).abs().max().item()
+    if not (got.shape == want.shape and err <= DECODE_TOL):
+        fail(f"K4 bin decode: max abs err {err} > {DECODE_TOL} (shape {tuple(got.shape)})")
+    if not torch.allclose(kernel(False), plain(False), rtol=1e-5, atol=1e-4):
+        fail("K4 bin decode (pixel mode) disagrees with the plain version")
+    rows, no_in, no_out = got.shape[1], maps[0].shape[-1], got.shape[-1]
+    print(f"K4 bin decode: {BS}x{rows}x{no_in} -> {no_out} max_abs_err {err:.3g} "
+          f"(tol {DECODE_TOL}; min bin gap {gap:.3g})", flush=True)
+    return dict(max_abs_err=err, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                bound_ms=BS * rows * (no_in + no_out) * 4 / HBM_BYTES_S * 1e3,
+                bound_by="bytes", library_ms=None)
+
+
+def k5_inputs(g, b, c, n, h, w, dtype):
+    import torch
+    x = torch.randn(b, c, h, w, device="cuda", generator=g).to(dtype)
+    wt = (torch.randn(n, c, device="cuda", generator=g) / c ** 0.5).to(dtype)
+    scale = torch.rand(n, device="cuda", generator=g) + 0.5
+    bias = torch.randn(n, device="cuda", generator=g) * 0.1
+    return x, wt, scale, bias
+
+
+def k5_compare(args, tol) -> float:
+    import torch
+    from yolo_continuous_tpu_torch.kernels.fused_conv import (fused_pointwise_conv_cuda,
+                                                              fused_pointwise_conv_plain)
+    got = fused_pointwise_conv_cuda(*args)
+    want = fused_pointwise_conv_plain(*args)
+    shape = tuple(args[0].shape[:1]) + (args[1].shape[0],) + tuple(args[0].shape[2:])
+    if got.dtype != args[0].dtype or tuple(got.shape) != shape:
+        fail(f"K5: output {got.dtype} {tuple(got.shape)} for input {tuple(args[0].shape)}")
+    if not torch.allclose(got.float(), want.float(), **tol):
+        bad = ~torch.isclose(got.float(), want.float(), **tol)
+        fail(f"K5 at {tuple(args[0].shape)} -> {args[1].shape[0]}: {int(bad.sum())} values "
+             f"outside {tol}, max abs err {(got.float() - want.float()).abs().max().item()}")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def check_fused_conv(g, shapes) -> dict:
+    """K5 against its plain version at every main-path shape (bf16, batch
+    16), one fp32 case and ragged ones; times against cuDNN's bf16 conv of
+    the same products and against the port's unfused Conv."""
+    import torch
+    import torch.nn.functional as F
+    from yolo_continuous_tpu_torch.kernels.fused_conv import (fused_pointwise_conv_cuda,
+                                                              fused_pointwise_conv_plain)
+    from yolo_continuous_tpu_torch.nn.layers import Conv
+
+    # ragged: C, N and HW off the tiles with vector loads; C and HW not
+    # multiples of 8 (element loads); one fp32 main-path shape and a ragged one
+    for dtype, (b, c, n, h, w) in ((torch.bfloat16, (BS, 1024, 200, 9, 16)),
+                                   (torch.bfloat16, (3, 520, 72, 9, 15)),
+                                   (torch.float32, (BS, 512, 256, 20, 20)),
+                                   (torch.float32, (3, 37, 19, 3, 5))):
+        key = "bf16" if dtype == torch.bfloat16 else "fp32"
+        err = k5_compare(k5_inputs(g, b, c, n, h, w, dtype), K5_TOL[key])
+        print(f"K5 {key} ({b}, {c}, {h}, {w}) -> {n}: max_abs_err {err:.3g} "
+              f"(tol {K5_TOL[key]})", flush=True)
+
+    tot = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, unfused_ms=0.0,
+               bytes_s=0.0, ops_s=0.0, bound_ms=0.0)
+    for c, n, h, w in shapes:
+        args = k5_inputs(g, BS, c, n, h, w, torch.bfloat16)
+        tot["err"] = max(tot["err"], k5_compare(args, K5_TOL["bf16"]))
+        x, wt, scale, bias = args
+        conv = Conv(c, n, 1, 1).cuda().eval()
+        conv.conv.to(torch.bfloat16)
+        with torch.no_grad():
+            conv.conv.weight.copy_(wt[:, :, None, None])
+            conv.bn.running_var.copy_(scale)
+            conv.bn.running_mean.copy_(bias)
+        w4 = wt[:, :, None, None].contiguous()
+        with torch.inference_mode():
+            tot["ms"] += cuda_ms(lambda: fused_pointwise_conv_cuda(*args), iters=10)
+            tot["plain_ms"] += cuda_ms(lambda: fused_pointwise_conv_plain(*args), iters=5)
+            tot["library_ms"] += cuda_ms(lambda: F.conv2d(x, w4), iters=10)
+            tot["unfused_ms"] += cuda_ms(lambda: conv(x), iters=10)
+        nbytes = (BS * c * h * w + n * c + BS * n * h * w) * 2 + 2 * n * 4
+        ops = 2.0 * BS * n * c * h * w
+        tb, to = nbytes / HBM_BYTES_S * 1e3, ops / BF16_FLOP_S * 1e3
+        tot["bound_ms"] += max(tb, to)
+        tot["bytes_s" if tb >= to else "ops_s"] += max(tb, to)
+        del args, x, wt, scale, bias, conv, w4
+    print(json.dumps({"fused_conv_shapes": dict(
+        calls=len(shapes), batch=BS, shapes_c_n_h_w=[list(s) for s in shapes],
+        max_abs_err=tot["err"], k5_ms=tot["ms"], unfused_conv_bn_silu_ms=tot["unfused_ms"],
+        cudnn_conv2d_bf16_ms=tot["library_ms"], plain_ms=tot["plain_ms"],
+        bound_ms=tot["bound_ms"], bytes_bound_part_ms=tot["bytes_s"],
+        operations_bound_part_ms=tot["ops_s"])}), flush=True)
+    return dict(max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=tot["bound_ms"],
+                bound_by="operations" if tot["ops_s"] > tot["bytes_s"] else "bytes",
+                library_ms=tot["library_ms"])
+
+
+def random_weights_plan(model_cfg=None):
     """The flagship plan, pointed at a checkpoint that does not exist, so the
-    Detector takes its seeded random init."""
+    Detector takes its seeded random init; ``model_cfg`` swaps the net."""
     from yolo_continuous_tpu_torch.config.plan import TrainPlan
     plan = TrainPlan("cfg/coco_train.yaml")
     plan.save_path = os.path.join(HERE, "runs", "chip_smoke_random_init.msgpack")
     if os.path.exists(os.path.splitext(plan.save_path)[0] + ".pth"):
         fail(f"{plan.save_path} has a .pth beside it; the smoke test uses random weights")
+    if model_cfg is not None:
+        plan.model_cfg = model_cfg
     return plan
 
 
-def phase_reference():
-    """CUDA Detector (fp32) against the same seeded CPU Detector (plain)."""
+def ibin_net() -> dict:
+    """cfg/net/yolov7.yaml with its head row swapped to IBin, built in memory
+    as scripts/head_ablation.py:37-48 builds its nets."""
+    from yolo_continuous_tpu_torch.config.plan import cvt_cfg
+    net = copy.deepcopy(cvt_cfg("cfg/net/yolov7.yaml"))
+    if net["head"][-1][2] != "Detect":
+        fail(f"cfg/net/yolov7.yaml ends in {net['head'][-1][2]}, not Detect")
+    net["head"][-1][2] = "IBin"
+    return net
+
+
+def reference_pair(model_cfg=None, fused_tails=False):
+    """A CPU fp32 Detector at 64 px with weights at a scale that keeps
+    activations O(1) through the depth (so the maps depend on the input and
+    the scores are spread), and a CUDA fp32 Detector with the same weights."""
     import torch
     from yolo_continuous_tpu_torch.detect_api import Detector
-    from yolo_continuous_tpu_torch.ops.decode import decode_outputs
-    from yolo_continuous_tpu_torch.ops.nms import suppress, suppress_plain, top_candidates
-
-    plan = random_weights_plan()
+    plan = random_weights_plan(model_cfg)
     plan.image_size = 64
-    cpu = Detector(plan, device="cpu", dtype=torch.float32, seed=1)
-    # weights at a scale that keeps activations O(1) through the depth, so
-    # the maps depend on the input and the scores are spread
+    cpu = Detector(plan, device="cpu", dtype=torch.float32, seed=1, fused_tails=fused_tails)
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for name, t in cpu.model.state_dict().items():
@@ -204,86 +405,213 @@ def phase_reference():
                 t.normal_(0.0, 0.1, generator=gen)
             elif name.endswith("running_var"):
                 t.uniform_(0.5, 1.5, generator=gen)
-    gpu = Detector(plan, device="cuda", dtype=torch.float32, state_dict=cpu.model.state_dict())
-    x = np.random.RandomState(1).rand(2, 64, 64, 3).astype("float32")
-    maps_c, maps_g = cpu.forward(x), gpu.forward(x)
-    for c, g in zip(maps_c, maps_g):
-        if not torch.allclose(g.cpu(), c, atol=5e-3, rtol=2e-3):
-            fail(f"CUDA forward differs from the CPU forward: {(g.cpu() - c).abs().max().item()}")
-    with torch.inference_mode():
-        pred_c = decode_outputs(maps_c, cpu.spec.anchors, cpu.spec.strides)
-        pred_g = decode_outputs(maps_g, gpu.spec.anchors, gpu.spec.strides)
-        if not torch.allclose(pred_g.cpu(), pred_c, atol=1e-4, rtol=1e-4):
-            fail(f"CUDA decode differs from the CPU decode: "
-                 f"{(pred_g.cpu() - pred_c).abs().max().item()}")
-        boxes, _, classes, valid = top_candidates(pred_g, 0.01, min(300, pred_g.shape[1]))
-        if not torch.equal(suppress(boxes, classes, valid, IOU),
-                           suppress_plain(boxes, classes, valid, IOU)):
-            fail("NMS keep-set on the CUDA rows differs from the plain version")
-    print(f"reference: yolov7 @64 fp32 CUDA == CPU (maps atol 5e-3, rows atol 1e-4); "
-          f"keep-set exact, {int(valid.sum())} valid, "
-          f"{int(suppress(boxes, classes, valid, IOU).sum())} kept", flush=True)
+    gpu = Detector(plan, device="cuda", dtype=torch.float32, state_dict=cpu.model.state_dict(),
+                   fused_tails=fused_tails)
+    return cpu, gpu
 
 
-def phase_main():
-    """The main path at full width, with launch counts and stage times."""
+def check_maps(what, maps_c, maps_g, n):
     import torch
-    from yolo_continuous_tpu_torch.detect_api import Detector
-    from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda
-    from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
-    from yolo_continuous_tpu_torch.ops.decode import decode_outputs
-    from yolo_continuous_tpu_torch.ops.nms import batched_nms
+    if len(maps_c) != n or len(maps_g) != n:
+        fail(f"{what}: {len(maps_g)} CUDA and {len(maps_c)} CPU maps, expected {n}")
+    for c, g in zip(maps_c, maps_g):
+        if g.shape != c.shape or not torch.allclose(g.cpu(), c, atol=5e-3, rtol=2e-3):
+            fail(f"{what}: CUDA forward differs from the CPU forward: "
+                 f"{(g.cpu() - c).abs().max().item()}")
 
-    plan = random_weights_plan()
-    det = Detector(plan, device="cuda", seed=0)
-    rs = np.random.RandomState(0)
-    images = torch.from_numpy(rs.rand(BS, SIZE, SIZE, 3).astype("float32")).cuda()
+
+def check_rows_and_keep(what, pred_c, pred_g):
+    import torch
+    from yolo_continuous_tpu_torch.ops.nms import suppress, suppress_plain, top_candidates
+    if not torch.allclose(pred_g.cpu(), pred_c, atol=1e-4, rtol=1e-4):
+        fail(f"{what}: CUDA decode differs from the CPU decode: "
+             f"{(pred_g.cpu() - pred_c).abs().max().item()}")
+    boxes, _, classes, valid = top_candidates(pred_g, 0.01, min(300, pred_g.shape[1]))
+    keep = suppress(boxes, classes, valid, IOU)
+    if not torch.equal(keep, suppress_plain(boxes, classes, valid, IOU)):
+        fail(f"{what}: NMS keep-set on the CUDA rows differs from the plain version")
+    return int(valid.sum()), int(keep.sum())
+
+
+def phase_reference():
+    """CUDA Detectors (fp32) against the same seeded CPU Detectors (plain)."""
+    import torch
+    from yolo_continuous_tpu_torch.kernels.bin_decode import decode_outputs_bin_cuda
+    from yolo_continuous_tpu_torch.kernels.fused_conv import fused_pointwise_conv_cuda
+    from yolo_continuous_tpu_torch.ops.decode import decode_outputs, decode_outputs_bin
+
+    x = np.random.RandomState(1).rand(2, 64, 64, 3).astype("float32")
+    cpu, gpu = reference_pair()
+    maps_c, maps_g = cpu.forward(x), gpu.forward(x)
+    check_maps("yolov7", maps_c, maps_g, 3)
+    with torch.inference_mode():
+        n_valid, n_kept = check_rows_and_keep(
+            "yolov7", decode_outputs(maps_c, cpu.spec.anchors, cpu.spec.strides),
+            decode_outputs(maps_g, gpu.spec.anchors, gpu.spec.strides))
+    print(f"reference: yolov7 @64 fp32 CUDA == CPU (maps atol 5e-3, rows atol 1e-4); "
+          f"keep-set exact, {n_valid} valid, {n_kept} kept", flush=True)
+
+    cpu, gpu = reference_pair(ibin_net())
+    maps_c, maps_g = cpu.forward(x), gpu.forward(x)
+    check_maps("yolov7-IBin", maps_c, maps_g, 3)
+    nb = gpu.spec.bin_count
+    gap = min(min_bin_gap(maps_c, nb), min_bin_gap(maps_g, nb))
+    if not gap > BIN_GAP:
+        fail(f"yolov7-IBin reference maps break the argmax-gap precondition: {gap}")
+    n4 = decode_outputs_bin_cuda.launches
+    with torch.inference_mode():
+        n_valid, n_kept = check_rows_and_keep(
+            "yolov7-IBin", decode_outputs_bin(maps_c, cpu.spec.anchors, cpu.spec.strides, nb),
+            decode_outputs_bin(maps_g, gpu.spec.anchors, gpu.spec.strides, nb))
+    if decode_outputs_bin_cuda.launches - n4 != 3:
+        fail("yolov7-IBin reference: the CUDA rows did not come from K4")
+    print(f"reference: yolov7-IBin @64 fp32 CUDA == CPU (K4 rows atol 1e-4, min bin gap "
+          f"{gap:.3g}); keep-set exact, {n_valid} valid, {n_kept} kept", flush=True)
+
+    cpu, gpu = reference_pair("cfg/net/yolov7-aux.yaml")
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        check_maps("yolov7-aux", cpu.model(xt), gpu.model(xt.cuda()), 6)
+    print("reference: yolov7-aux @64 fp32 CUDA == CPU, all 6 maps (atol 5e-3)", flush=True)
+
+    cpu, gpu = reference_pair(fused_tails=True)
+    n5 = fused_pointwise_conv_cuda.launches
+    maps_c, maps_g = cpu.forward(x), gpu.forward(x)
+    torch.cuda.synchronize()
+    if fused_pointwise_conv_cuda.launches - n5 != 24:
+        fail(f"yolov7 fused_tails reference: K5 launched "
+             f"{fused_pointwise_conv_cuda.launches - n5} times, not 24")
+    check_maps("yolov7 fused_tails", maps_c, maps_g, 3)
+    print("reference: yolov7 fused_tails @64 fp32 CUDA (K5 fp32, 24 calls) == CPU "
+          "(maps atol 5e-3)", flush=True)
+
+
+def counters():
+    from yolo_continuous_tpu_torch.kernels.bin_decode import decode_outputs_bin_cuda
+    from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda
+    from yolo_continuous_tpu_torch.kernels.fused_conv import fused_pointwise_conv_cuda
+    from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
+    return (decode_outputs_cuda, nms_suppress, nms_suppress_tiled, decode_outputs_bin_cuda,
+            fused_pointwise_conv_cuda)
+
+
+def drive_path(label, det, images, max_dets):
+    """One main path: counters to 0, ``len(max_dets)`` requests, counters
+    read; outputs checked. Returns the launches of each kernel."""
+    import torch
     det(images, CONF, IOU, 300)          # warm cuDNN before the counted run
     torch.cuda.synchronize()
-
-    counters = (decode_outputs_cuda, nms_suppress, nms_suppress_tiled)
-    for fn in counters:
+    for fn in counters():
         fn.launches = 0
-    outs = [det(images, CONF, IOU, 300) for _ in range(3)] + [det(images, CONF, IOU, 4096)]
+    outs = [det(images, CONF, IOU, m) for m in max_dets]
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"main path never launched {name}")
-    for max_det, (boxes, scores, classes, valid) in zip((300, 300, 300, 4096), outs):
+    launches = {fn.__name__: fn.launches for fn in counters()}
+    for max_det, (boxes, scores, classes, valid) in zip(max_dets, outs):
         if boxes.shape != (BS, max_det, 4) or scores.shape != (BS, max_det):
-            fail(f"main path output shape {tuple(boxes.shape)}")
+            fail(f"{label} path output shape {tuple(boxes.shape)}")
         if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
-            fail("main path output is not finite")
-        if bool((scores[valid] < CONF).any()) or bool((classes[valid] >= plan.num_labels).any()):
-            fail("main path kept a detection under the threshold or of an unknown class")
+            fail(f"{label} path output is not finite")
+        if bool((scores[valid] < CONF).any()) or bool((classes[valid] >= det.spec.nc).any()):
+            fail(f"{label} path kept a detection under the threshold or of an unknown class")
+    print(f"{label} path: launches {launches}; kept per image "
+          f"{float(outs[0][3].sum()) / BS}", flush=True)
+    return launches
 
+
+def stage_times(det, images, decode):
+    """Stage times of one request at max_det 300, CUDA events."""
+    import torch
+    from yolo_continuous_tpu_torch.ops.nms import batched_nms
     with torch.inference_mode():
         maps = det.forward(images)
-        pred = decode_outputs(maps, det.spec.anchors, det.spec.strides)
+        pred = decode(maps)
         stages = dict(
             forward_ms=cuda_ms(lambda: det.forward(images), iters=10),
-            decode_ms=cuda_ms(lambda: decode_outputs(maps, det.spec.anchors, det.spec.strides)),
+            decode_ms=cuda_ms(lambda: decode(maps)),
             nms_ms=cuda_ms(lambda: batched_nms(pred, CONF, IOU, 300)),
             total_ms=cuda_ms(lambda: det(images, CONF, IOU, 300), iters=10))
     stages["img_s"] = BS / stages["total_ms"] * 1e3
-    stages["kept_per_image"] = float(outs[0][3].sum()) / BS
-    # host time to enqueue one request on an idle card: near total_ms, the
-    # host and not the card sets the pace
-    host_ms = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        det(images, CONF, IOU, 300)
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    stages["host_enqueue_ms"] = float(np.median(host_ms))
-    print(json.dumps({"main_path": dict(config="cfg/coco_train.yaml yolov7 640px bf16",
-                                        batch=BS, conf=CONF, iou=IOU, max_det=300,
-                                        **stages)}), flush=True)
-    print(json.dumps({"profile": profile_window(lambda: det(images, CONF, IOU, 300))}),
-          flush=True)
-    return launches
+    return stages
+
+
+def phase_main():
+    """The main paths at full width, with launch counts and stage times."""
+    import torch
+    from yolo_continuous_tpu_torch.detect_api import Detector
+    from yolo_continuous_tpu_torch.ops.decode import decode_outputs, decode_outputs_bin
+
+    rs = np.random.RandomState(0)
+    images = torch.from_numpy(rs.rand(BS, SIZE, SIZE, 3).astype("float32")).cuda()
+    total = {fn.__name__: 0 for fn in counters()}
+    paths = (
+        ("default", dict(), (300, 300, 300, 4096),
+         ("decode_outputs_cuda", "nms_suppress", "nms_suppress_tiled"),
+         {"decode_outputs_bin_cuda": 0, "fused_pointwise_conv_cuda": 0}),
+        ("ibin", dict(model_cfg=ibin_net()), (300, 300, 300),
+         ("decode_outputs_bin_cuda", "nms_suppress"),
+         {"decode_outputs_bin_cuda": 9, "decode_outputs_cuda": 0, "fused_pointwise_conv_cuda": 0}),
+        ("fused_tails", dict(fused_tails=True), (300, 300, 300),
+         ("fused_pointwise_conv_cuda", "decode_outputs_cuda", "nms_suppress"),
+         {"fused_pointwise_conv_cuda": 72, "decode_outputs_bin_cuda": 0}),
+    )
+    dets = {}
+    for label, kw, max_dets, must, exact in paths:
+        det = dets[label] = Detector(random_weights_plan(kw.get("model_cfg")), device="cuda",
+                                     seed=0, fused_tails=kw.get("fused_tails"))
+        launches = drive_path(label, det, images, max_dets)
+        for name in must:
+            if launches[name] == 0:
+                fail(f"{label} path never launched {name}")
+        for name, n in exact.items():
+            if launches[name] != n:
+                fail(f"{label} path launched {name} {launches[name]} times, not {n} "
+                     f"({len(max_dets)} requests)")
+        for name, n in launches.items():
+            total[name] += n
+
+        spec = det.spec
+        if spec.head_name == "IBin":
+            def decode(maps):
+                return decode_outputs_bin(maps, spec.anchors, spec.strides, spec.bin_count)
+        else:
+            def decode(maps):
+                return decode_outputs(maps, spec.anchors, spec.strides)
+        stages = stage_times(det, images, decode)
+        if label == "default":
+            # host time to enqueue one request on an idle card: near total_ms,
+            # the host and not the card sets the pace
+            host_ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                det(images, CONF, IOU, 300)
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            stages["host_enqueue_ms"] = float(np.median(host_ms))
+        net = "yolov7-IBin" if label == "ibin" else "yolov7"
+        print(json.dumps({"main_path": dict(
+            path=label, config=f"cfg/coco_train.yaml {net} 640px bf16", head=spec.head_name,
+            fused_tails=det.fused_tails, batch=BS, conf=CONF, iou=IOU, max_det=300,
+            **stages)}), flush=True)
+        print(json.dumps({"profile": dict(path=label, **profile_window(
+            lambda: det(images, CONF, IOU, 300)))}), flush=True)
+
+    # the paths against each other in turns (ABC, CBA, ...), so that a drift
+    # of the host or the card falls on all of them alike
+    turns = {label: dict(forward_ms=[], total_ms=[]) for label in dets}
+    with torch.inference_mode():
+        for r in range(4):
+            for label in (list(dets) if r % 2 == 0 else list(dets)[::-1]):
+                det = dets[label]
+                turns[label]["forward_ms"].append(
+                    cuda_ms(lambda: det.forward(images), iters=10, warmup=2))
+                turns[label]["total_ms"].append(
+                    cuda_ms(lambda: det(images, CONF, IOU, 300), iters=10, warmup=2))
+    print(json.dumps({"paths_in_turns": {
+        label: dict(median_forward_ms=float(np.median(t["forward_ms"])),
+                    median_total_ms=float(np.median(t["total_ms"])), **t)
+        for label, t in turns.items()}}), flush=True)
+    return total
 
 
 def profile_window(fn, calls: int = 3) -> dict:
@@ -338,7 +666,12 @@ def main() -> None:
     plan = random_weights_plan()
     spec = build_model_spec(cvt_cfg(plan.model_cfg), plan.image_chan, plan.anchors,
                             plan.num_labels, plan.anchors_mask)
-    report = phase_kernels(spec)
+    bin_spec = build_model_spec(ibin_net(), plan.image_chan, plan.anchors, plan.num_labels,
+                                plan.anchors_mask)
+    k5_shapes = fused_tail_shapes()
+    if len(k5_shapes) != 24:
+        fail(f"yolov7 @640 fused tails: {len(k5_shapes)} K5 calls, expected 24")
+    report = phase_kernels(spec, bin_spec, k5_shapes)
     phase_reference()
     launches = phase_main()
 
@@ -349,6 +682,12 @@ def main() -> None:
                          "nms_suppress"),
         "nms_suppress_tiled": ("csrc/nms.cu", "yolo_continuous_tpu/kernels/nms_pallas.py:131",
                                "nms_suppress_tiled"),
+        "decode_level_bin": ("csrc/bin_decode.cu",
+                             "yolo_continuous_tpu/kernels/bin_decode_pallas.py:80",
+                             "decode_outputs_bin_cuda"),
+        "fused_conv": ("csrc/fused_conv.cu",
+                       "yolo_continuous_tpu/kernels/fused_conv_pallas.py:37",
+                       "fused_pointwise_conv_cuda"),
     }
     kernels = []
     for name, (src, replaces, counter) in meta.items():
@@ -356,7 +695,8 @@ def main() -> None:
         kernels.append(dict(name=name, route="cuda", source=f"yolo_continuous_tpu_torch/{src}",
                             replaces=replaces, launches=launches[counter],
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)

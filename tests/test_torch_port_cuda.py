@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K3 on the card against their plain PyTorch versions.
+"""Kernels K1-K5 on the card against their plain PyTorch versions.
 
 These need an NVIDIA GPU with nvcc (sm_90a) and skip elsewhere. Run them on
 the GPU machine with:
@@ -13,10 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import ibin_logits, min_bin_gap, tiny_plan_cfg
+from yolo_continuous_tpu_torch.config.plan import TrainPlan
+from yolo_continuous_tpu_torch.detect_api import Detector
+from yolo_continuous_tpu_torch.kernels.bin_decode import decode_outputs_bin_cuda
 from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda
+from yolo_continuous_tpu_torch.kernels.fused_conv import (fused_pointwise_conv_cuda,
+                                                          fused_pointwise_conv_plain)
 from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
 from yolo_continuous_tpu_torch.nn.heads import head_view
-from yolo_continuous_tpu_torch.ops.decode import decode_level
+from yolo_continuous_tpu_torch.ops.decode import decode_level, decode_level_bin
 from yolo_continuous_tpu_torch.ops.nms import suppress, suppress_plain
 
 pytestmark = pytest.mark.cuda
@@ -29,6 +35,8 @@ ANCHORS = (((142.0, 110.0), (192.0, 243.0), (459.0, 401.0)),
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; run on the GPU machine")
+    torch.backends.cuda.matmul.allow_tf32 = False     # plain versions keep fp32 products
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -73,3 +81,69 @@ def test_suppress_dispatches_by_k(cuda):
     suppress(*_boxes(rs, 2, 1024, 3), 0.45)
     suppress(*_boxes(rs, 2, 1025, 3), 0.45)
     assert (nms_suppress.launches - n1, nms_suppress_tiled.launches - n2) == (1, 1)
+
+
+@pytest.mark.parametrize("normalized", [True, False])
+def test_bin_decode_kernel_matches_plain(cuda, normalized):
+    """K4 on strided IBin views of NCHW maps, under the argmax-gap precondition."""
+    rs = np.random.RandomState(1)
+    maps = []
+    for n in (9, 5, 3):
+        p = ibin_logits(rs, (3, n, n + 1, 3), 4)
+        assert min_bin_gap(p) > 1e-5
+        bs, h, w, na, no = p.shape
+        y = torch.from_numpy(p).permute(0, 3, 4, 1, 2).reshape(bs, na * no, h, w).contiguous()
+        maps.append(head_view(y.to(cuda), na, no))
+    anchors = ANCHORS[::-1]
+    strides = (8, 16, 32)
+    before = decode_outputs_bin_cuda.launches
+    got = decode_outputs_bin_cuda(maps, anchors, strides, 21, normalized)
+    torch.cuda.synchronize()
+    assert decode_outputs_bin_cuda.launches == before + 3
+    want = torch.cat([decode_level_bin(m, torch.tensor(a), float(s), 21, normalized)
+                      for m, a, s in zip(maps, anchors, strides)], 1)
+    assert got.shape == want.shape == (3, 3 * (90 + 30 + 12), 9)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# dtype, C_in, C_out, H, W: a main-path shape, a ragged one (vector loads),
+# and ones whose C or H*W is not a multiple of 8 (element loads)
+K5_CASES = [(torch.bfloat16, 512, 256, 20, 20), (torch.bfloat16, 1024, 200, 9, 16),
+            (torch.bfloat16, 40, 24, 5, 7), (torch.float32, 512, 256, 10, 10),
+            (torch.float32, 37, 19, 3, 5)]
+
+
+@pytest.mark.parametrize("dtype,c,n,h,w", K5_CASES)
+def test_fused_conv_kernel_matches_plain(cuda, dtype, c, n, h, w):
+    g = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.randn(2, c, h, w, device=cuda, generator=g).to(dtype)
+    wt = (torch.randn(n, c, device=cuda, generator=g) / c ** 0.5).to(dtype)
+    scale = torch.rand(n, device=cuda, generator=g) + 0.5
+    bias = torch.randn(n, device=cuda, generator=g) * 0.1
+    before = fused_pointwise_conv_cuda.launches
+    got = fused_pointwise_conv_cuda(x, wt, scale, bias)
+    torch.cuda.synchronize()
+    assert fused_pointwise_conv_cuda.launches == before + 1
+    want = fused_pointwise_conv_plain(x, wt, scale, bias)
+    assert got.dtype == dtype and got.shape == want.shape == (2, n, h, w)
+    # bf16: one bf16 ulp (fp32 sums in another order round across a boundary)
+    tol = dict(rtol=8e-3, atol=1e-3) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_detector_paths_launch_k4_and_k5(cuda):
+    """IBin decodes through K4 (3 levels); fused_tails runs yolov7's 24
+    eligible Convs through K5."""
+    det = Detector(TrainPlan(tiny_plan_cfg("IBin", 64)), device="cuda", seed=0)
+    n4 = decode_outputs_bin_cuda.launches
+    boxes, _, _, _ = det(np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32), 0.01)
+    torch.cuda.synchronize()
+    assert decode_outputs_bin_cuda.launches - n4 == 3 and torch.isfinite(boxes).all()
+    plan = TrainPlan("cfg/chip_tiny.yaml")
+    plan.model_cfg, plan.image_size = "cfg/net/yolov7.yaml", 64
+    plan.save_path = "/nonexistent/x.msgpack"
+    det = Detector(plan, device="cuda", seed=0, fused_tails=True)
+    n5 = fused_pointwise_conv_cuda.launches
+    det.forward(np.zeros((1, 64, 64, 3), np.float32))
+    torch.cuda.synchronize()
+    assert fused_pointwise_conv_cuda.launches - n5 == 24

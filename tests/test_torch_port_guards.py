@@ -43,6 +43,8 @@ import yolo_continuous_tpu_torch
 import yolo_continuous_tpu_torch.detect_api, yolo_continuous_tpu_torch.detect
 import yolo_continuous_tpu_torch.tools.jax_weights
 import yolo_continuous_tpu_torch.kernels.decode, yolo_continuous_tpu_torch.kernels.nms
+import yolo_continuous_tpu_torch.kernels.bin_decode, yolo_continuous_tpu_torch.kernels.fused_conv
+import yolo_continuous_tpu_torch.ops.sigmoid_bin
 import torch
 from yolo_continuous_tpu_torch.kernels import _build
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r} or m == "triton")

@@ -1,13 +1,14 @@
 """Single-image / batched inference API on PyTorch.
 
 Counterpart of ``yolo_continuous_tpu/detect_api.py`` (``Detector``,
-``TargetBox``, ``generate_colors``, ``predict``): forward, grid decode
-(kernel K3 on CUDA), class-aware NMS (kernels K1/K2 on CUDA), letterbox
+``TargetBox``, ``generate_colors``, ``predict``): forward (with the
+``fused_tails`` option, kernel K5 on CUDA), grid decode (kernel K3 on CUDA;
+IBin heads: kernel K4), class-aware NMS (kernels K1/K2 on CUDA), letterbox
 un-mapping. Everything up to the fixed-size NMS result stays on the device.
 
 Runs on ``cuda`` by default and raises if there is no CUDA device; pass
 ``device="cpu"`` for the plain CPU path (the tests do). Not ported yet:
-``fuse``, ``quantize``, ``fused_tails``, ``calibrate``, ``reload_weights``
+``fuse``, ``quantize``, ``calibrate``, ``head_dtype``, ``reload_weights``
 and flax ``.msgpack`` checkpoints (ROADMAP.md).
 
 Deliberate fix kept from the JAX package: prediction runs on RGB, as
@@ -25,7 +26,7 @@ import torch
 
 from .config.plan import TrainPlan, check_file, cvt_cfg
 from .nn.builder import YoloModel, build_model_spec
-from .ops.decode import decode_outputs
+from .ops.decode import decode_outputs, decode_outputs_bin
 from .ops.nms import batched_nms, yolo_correct_boxes
 from .ops.preprocess import cv2, letterbox
 
@@ -82,6 +83,10 @@ class Detector:
     runs in ``dtype`` (bf16 on CUDA, fp32 on the CPU, as
     ``detect_api.py:93-94``); the head logits are fp32.
 
+    ``fused_tails`` runs the eligible 1x1 Convs as one fused conv + BN +
+    SiLU (``layers.Conv``; kernel K5 on CUDA); it defaults to the plan's
+    ``fused_tails`` key (off), as ``detect_api.py:100-102``.
+
     On CUDA, TF32 is switched off for cuDNN convolutions and cuBLAS
     matmuls: the fp32 head convolution then keeps fp32 products, as the
     JAX reference does (with a bf16 body its inputs are bf16 values, whose
@@ -89,7 +94,8 @@ class Detector:
     """
 
     def __init__(self, plan: TrainPlan, device="cuda", dtype: Optional[torch.dtype] = None,
-                 state_dict: Optional[Dict[str, torch.Tensor]] = None, seed: int = 0):
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None, seed: int = 0,
+                 fused_tails: Optional[bool] = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
@@ -99,7 +105,10 @@ class Detector:
         self.spec = build_model_spec(cvt_cfg(plan.model_cfg), plan.image_chan, plan.anchors,
                                      plan.num_labels, plan.anchors_mask)
         self.nl = len(self.spec.strides)
-        model = YoloModel(self.spec)
+        if fused_tails is None:
+            fused_tails = bool(plan.cfg.get("fused_tails", False))
+        self.fused_tails = bool(fused_tails)
+        model = YoloModel(self.spec, fused_tails=self.fused_tails)
         if state_dict is None:
             pth = os.path.splitext(plan.save_path)[0] + ".pth"
             if os.path.exists(pth):
@@ -112,7 +121,8 @@ class Detector:
 
     @torch.inference_mode()
     def forward(self, images) -> List[torch.Tensor]:
-        """images (bs, H, W, 3) float 0..1 -> raw maps [(bs, h, w, na, no)] fp32."""
+        """images (bs, H, W, 3) float 0..1 -> raw maps [(bs, h, w, na, no)] fp32
+        (IAuxDetect: the leads only, iaux_detect.py:52)."""
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.contiguous_format)
         return self.model(x)[: self.nl]
@@ -122,8 +132,12 @@ class Detector:
                  max_det: int = 300):
         """images (bs, H, W, 3) float 0..1 -> (boxes_xyxy_norm, scores,
         classes, valid), fixed-shape, on the detector's device."""
-        pred = decode_outputs(self.forward(images), self.spec.anchors, self.spec.strides,
-                              normalized=True)  # (bs, total, 5+nc)
+        maps, spec = self.forward(images), self.spec
+        if spec.head_name == "IBin":
+            pred = decode_outputs_bin(maps, spec.anchors, spec.strides, spec.bin_count,
+                                      normalized=True)
+        else:
+            pred = decode_outputs(maps, spec.anchors, spec.strides, normalized=True)
         return batched_nms(pred, conf_thres, nms_thres, max_det)
 
 

@@ -38,6 +38,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "nms_suppress": (_P, _P, _P, _P, _I, _I, _F, _P),
         "nms_suppress_tiled": (_P, _P, _P, _P, _I, _I, _F, _P),
     },
+    "bin_decode": {
+        "decode_level_bin": (_P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
+                             ctypes.POINTER(_F), _I, _I, _F, _P),
+    },
+    "fused_conv": {
+        "fused_conv_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "fused_conv_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

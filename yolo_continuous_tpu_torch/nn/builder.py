@@ -8,9 +8,10 @@ in NCHW, with the reference's module names (``model.{i}.conv.weight``,
 ``model.{head}.yolo_head_P3.weight``, ...), so a state_dict from
 ``tools/jax_weights.state_dict_from_jax`` loads with ``strict=True``.
 
-This slice builds the rows that yolov7 and yolov7-tiny use (Conv, MP, SP,
-Concat, nn.Upsample, SPPCSPC, RepConv, Detect). Any other row raises
-``NotImplementedError`` naming its ROADMAP item.
+The port builds the rows that yolov7, yolov7-tiny and yolov7-aux use (Conv,
+MP, SP, Concat, nn.Upsample, SPPCSPC, RepConv) and every head (Detect,
+IDetect, IAuxDetect, IBin). Any other row raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 from torch import nn
 
 from . import layers as L
-from .heads import HEAD_NAMES, Detect, head_output_order
+from .heads import HEAD_NAMES, Detect, IAuxDetect, IBin, IDetect, head_output_order
 
 
 def make_divisible(x, divisor):
@@ -306,11 +307,10 @@ def _defn(args, idx, default):
     return args[idx] if len(args) > idx else default
 
 
-_LATER_HEADS = "ROADMAP.md Queue 1 item 14 (IDetect / IAuxDetect / IBin heads)"
 _LATER_ZOO = "ROADMAP.md Queue 1 item 15 (the rest of the module zoo)"
 
 
-def _make_layer(s: LayerSpec, spec: ModelSpec) -> nn.Module:
+def _make_layer(s: LayerSpec, spec: ModelSpec, fused_tails: bool = False) -> nn.Module:
     name, a = s.name, s.args
 
     def repeat(make):
@@ -321,7 +321,7 @@ def _make_layer(s: LayerSpec, spec: ModelSpec) -> nn.Module:
     if name == "Conv":
         return repeat(lambda: L.Conv(s.c1, s.c2, _def(a, 0, 1), _def(a, 1, 1),
                                      _defn(a, 2, None), _def(a, 3, 1),
-                                     _defn(a, 4, True)))
+                                     _defn(a, 4, True), fused_tail=fused_tails))
     if name == "RepConv":
         return repeat(lambda: L.RepConv(s.c1, s.c2, _def(a, 0, 3), _def(a, 1, 1),
                                         _defn(a, 2, None), _def(a, 3, 1),
@@ -341,8 +341,12 @@ def _make_layer(s: LayerSpec, spec: ModelSpec) -> nn.Module:
         return L.Upsample2x()
     if name == "Detect":
         return Detect(spec.nc, spec.na, s.c1)
-    if name in HEAD_NAMES:
-        raise NotImplementedError(f"head {name!r} is not ported yet: {_LATER_HEADS}")
+    if name == "IDetect":
+        return IDetect(spec.nc, spec.na, s.c1)
+    if name == "IAuxDetect":
+        return IAuxDetect(spec.nc, spec.na, s.c1)
+    if name == "IBin":
+        return IBin(spec.nc, spec.na, s.c1, spec.bin_count)
     raise NotImplementedError(
         f"module {name!r} at layer {s.i} is not ported yet: {_LATER_ZOO}")
 
@@ -351,15 +355,19 @@ class YoloModel(nn.Module):
     """Static save-list interpreter (nets/yolo.py:95-153), NCHW.
 
     ``forward(x (bs, 3, H, W))`` returns the head's raw maps, each a
-    ``(bs, h, w, na, no)`` fp32 view, P5 first. The body runs in the dtype
-    given to ``set_dtype`` (fp32 until then).
+    ``(bs, h, w, na, no)`` fp32 view, in the head's order (P5 first for
+    Detect, P3 first for the I-heads). The body runs in the dtype given to
+    ``set_dtype`` (fp32 until then). ``fused_tails`` goes to the net's
+    ``Conv`` rows only, as JAX ``builder.py:378-381`` (never to the Convs
+    inside SPPCSPC): eligible ones run as K5 in eval mode
+    (``layers.Conv``).
     """
 
-    def __init__(self, spec: ModelSpec):
+    def __init__(self, spec: ModelSpec, fused_tails: bool = False):
         super().__init__()
         self.spec = spec
         self.dtype = torch.float32
-        self.model = nn.ModuleList([_make_layer(s, spec) for s in spec.layers])
+        self.model = nn.ModuleList([_make_layer(s, spec, fused_tails) for s in spec.layers])
 
     def set_dtype(self, dtype: torch.dtype) -> "YoloModel":
         """Body convs to ``dtype``; BN statistics and head stay fp32, the
@@ -375,9 +383,13 @@ class YoloModel(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "YoloModel":
         """Seeded random init as the JAX package's: conv kernels
-        normal(0, 0.02) (nets/yolo.py:120), BN scale normal(1, 0.02)."""
+        normal(0, 0.02) (nets/yolo.py:120), BN scale normal(1, 0.02),
+        ImplicitA normal(0, 0.02), ImplicitM normal(1, 0.02)."""
         for m in self.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (L.ImplicitA, L.ImplicitM)):
+                mean = 1.0 if isinstance(m, L.ImplicitM) else 0.0
+                m.implicit.normal_(mean, 0.02, generator=generator)
+            elif isinstance(m, nn.Conv2d):
                 m.weight.normal_(0.0, 0.02, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()

@@ -1,10 +1,13 @@
-"""Detection head ``Detect`` (PyTorch port of ``yolo_continuous_tpu/nn/heads.py``).
+"""Detection heads Detect / IDetect / IAuxDetect / IBin (PyTorch port of
+``yolo_continuous_tpu/nn/heads.py``).
 
-The head returns the raw maps in the JAX layout ``(bs, h, w, na, no)``,
+Every head returns the raw maps in the JAX layout ``(bs, h, w, na, no)``,
 built as a view of the NCHW conv output (no copy):
-``view(bs, na, no, h, w).permute(0, 3, 4, 1, 2)``. The decode kernel reads
-that strided view directly. Output order is P5, P4, P3
-(``nets/detect.py:27-38``).
+``view(bs, na, no, h, w).permute(0, 3, 4, 1, 2)``. The decode kernels read
+that strided view directly. Detect outputs P5, P4, P3
+(``nets/detect.py:27-38``); the I-heads output P3-first, in input order
+(``nets/idetect.py:29-45``). Module names give the reference's state_dict
+keys: ``ia.{i}.implicit``, ``m.{i}.weight``, ``im.{i}.implicit``, ``m2.{i}``.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from .layers import LogitConv
+from .layers import ImplicitA, ImplicitM, LogitConv
 
 HEAD_NAMES = ("Detect", "IDetect", "IAuxDetect", "IBin")
 
@@ -41,6 +44,48 @@ class Detect(nn.Module):
         p4 = self.yolo_head_P4(xs[1])
         p5 = self.yolo_head_P5(xs[2])
         return [head_view(p, self.na, self.no) for p in (p5, p4, p3)]
+
+
+class IDetect(nn.Module):
+    """Implicit-knowledge head; nets/idetect.py:7-50: per level
+    ImplicitA -> 1x1 LogitConv -> ImplicitM. Output order = input order."""
+
+    def __init__(self, nc: int, na: int, ch: Sequence[int], no: int = 0):
+        super().__init__()
+        self.nc, self.na, self.no = nc, na, no or nc + 5
+        self.ia = nn.ModuleList(ImplicitA(c) for c in ch)
+        self.m = nn.ModuleList(LogitConv(c, na * self.no) for c in ch)
+        self.im = nn.ModuleList(ImplicitM(na * self.no) for _ in ch)
+
+    def forward(self, xs):
+        return [head_view(im(m(ia(x))), self.na, self.no)
+                for x, ia, m, im in zip(xs, self.ia, self.m, self.im)]
+
+
+class IAuxDetect(IDetect):
+    """IDetect + auxiliary 1x1 convs; nets/iaux_detect.py:7-54.
+
+    xs = [P3, P4, P5, A3, A4, A5]; returns 6 maps, leads then auxes. Eval
+    consumers use the first nl (nets/iaux_detect.py:40-49)."""
+
+    def __init__(self, nc: int, na: int, ch: Sequence[int]):
+        nl = len(ch) // 2
+        super().__init__(nc, na, ch[:nl])
+        self.m2 = nn.ModuleList(LogitConv(c, na * self.no) for c in ch[nl:])
+
+    def forward(self, xs):
+        nl = len(self.m)
+        leads = super().forward(xs[:nl])
+        return leads + [head_view(m2(x), self.na, self.no) for x, m2 in zip(xs[nl:], self.m2)]
+
+
+class IBin(IDetect):
+    """Bin-regression head; nets/ibin.py:8-79. no = nc + 3 + 2 (bins + 1):
+    [x, y, w residual + bins, h residual + bins, obj, cls...]."""
+
+    def __init__(self, nc: int, na: int, ch: Sequence[int], bin_count: int = 21):
+        super().__init__(nc, na, ch, no=nc + 3 + 2 * (bin_count + 1))
+        self.bin_count = bin_count
 
 
 def head_output_order(head_name: str, nl: int) -> Tuple[int, ...]:

@@ -28,11 +28,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.fused_conv import fused_pointwise_conv
+
 # True -> SiLU (the reference default), a str name, or ("leaky_relu", slope)
 # parsed from YAML strings like "nn.LeakyReLU(0.1)".
 ActSpec = Union[bool, None, str, Tuple[str, float]]
 
 BN_EPS = 1e-5
+# Input channels from which a fused-tail Conv takes kernel K5 (JAX default).
+FUSED_TAIL_MIN_CIN = 512
 
 
 def autopad(k: int, p: Optional[int] = None) -> int:
@@ -91,16 +95,32 @@ class LogitConv(nn.Conv2d):
 
 
 class Conv(nn.Module):
-    """Conv2d + BN + act; nets/common.py:97-109 (no int8 / fused-tail branch)."""
+    """Conv2d + BN + act; nets/common.py:97-109 (no int8 branch).
+
+    ``fused_tail=True`` (serving option, JAX ``layers.py:501-511``): in
+    eval mode a 1x1, stride-1, ungrouped SiLU instance with C_in >=
+    ``FUSED_TAIL_MIN_CIN`` runs as one fused conv + folded BN + SiLU
+    (``kernels/fused_conv.py``, kernel K5 on CUDA). BN folds in fp32 and the
+    result is rounded once to the body dtype, not after the conv and again
+    after BN as below. The parameters are the same either way.
+    """
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
-                 p: Optional[int] = None, g: int = 1, act: ActSpec = True):
+                 p: Optional[int] = None, g: int = 1, act: ActSpec = True,
+                 fused_tail: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
         self.bn = BatchNorm2d(c2)
         self.act = act
+        self.fused_tail = fused_tail and k == 1 and s == 1 and g == 1 and act is True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused_tail and not self.training and x.shape[1] >= FUSED_TAIL_MIN_CIN:
+            bn = self.bn
+            inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+            shift = bn.bias - bn.running_mean * inv
+            w = self.conv.weight.to(x.dtype).reshape(self.conv.out_channels, -1)
+            return fused_pointwise_conv(x.contiguous(), w, inv, shift)
         return apply_act(self.bn(self.conv(x)), self.act)
 
 
@@ -196,6 +216,33 @@ class SPPCSPC(nn.Module):
         y1 = self.cv6(self.cv5(concat([x1] + sp_pyramid(x1, self.k))))
         y2 = self.cv2(x)
         return self.cv7(concat([y1, y2]))
+
+
+class ImplicitA(nn.Module):
+    """Learned additive prior; nets/common.py:416-426 (JAX ``layers.py:891-904``).
+
+    Adds in the input's dtype (the body dtype, bf16 on CUDA)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.implicit = nn.Parameter(torch.zeros(1, c, 1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.implicit.to(x.dtype)
+
+
+class ImplicitM(nn.Module):
+    """Learned multiplicative prior; nets/common.py:429-439 (JAX
+    ``layers.py:907-924``). It scales the fp32 logits of ``LogitConv``, so
+    the product stays fp32. Drawn around 1 by ``YoloModel.init_weights``
+    (the JAX package's deliberate fix; the reference draws around 0)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.implicit = nn.Parameter(torch.ones(1, c, 1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.implicit.to(x.dtype)
 
 
 class RepConv(nn.Module):

@@ -6,14 +6,23 @@ flattens to ``(bs, h*w*na, no)`` rows in (h, w, na) order, the JAX order
 (``decode.py:51``) that top-k then ranks.
 
 ``decode_level`` is the plain PyTorch version of kernel K3
-(``kernels/decode.py``, ``csrc/decode.cu``). ``decode_outputs`` sends CPU
-tensors to it and CUDA tensors to the kernel.
+(``kernels/decode.py``, ``csrc/decode.cu``), ``decode_level_bin`` that of
+kernel K4 (``kernels/bin_decode.py``, ``csrc/bin_decode.cu``).
+``decode_outputs`` and ``decode_outputs_bin`` send CPU tensors to them and
+CUDA tensors to the kernels.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+
+from .sigmoid_bin import SigmoidBinCfg, sigmoid_bin_decode
+
+
+def _check_device(device: torch.device) -> None:
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"decode runs on CUDA (kernel) or CPU (plain) tensors, got {device}")
 
 
 def decode_level(pred: torch.Tensor, anchors_px: torch.Tensor, stride: float,
@@ -48,10 +57,52 @@ def decode_outputs(preds: Sequence[torch.Tensor], anchors: Sequence, strides: Se
 
     CUDA tensors go through kernel K3; CPU tensors through ``decode_level``."""
     device = preds[0].device
+    _check_device(device)
     if device.type == "cuda":
         from ..kernels.decode import decode_outputs_cuda
         return decode_outputs_cuda(preds, anchors, strides, normalized)
-    if device.type != "cpu":
-        raise ValueError(f"decode runs on CUDA (kernel) or CPU (plain) tensors, got {device}")
     return torch.cat([decode_level(p, torch.tensor(a, dtype=torch.float32), float(s), normalized)
+                      for p, a, s in zip(preds, anchors, strides)], dim=1)
+
+
+def decode_level_bin(pred: torch.Tensor, anchors_px: torch.Tensor, stride: float,
+                     bin_count: int = 21, normalized: bool = True) -> torch.Tensor:
+    """IBin in-head decode (nets/ibin.py:46-75), plain version ->
+    ``(bs, h*w*na, 5+nc)``.
+
+    w/h come from the SigmoidBin argmax + residual over the sigmoided bins,
+    scaled by the pixel anchors; xy/obj/cls as usual."""
+    cfgb = SigmoidBinCfg(bin_count=bin_count, vmin=0.0, vmax=4.0)
+    n = cfgb.length
+    bs, h, w, na, _ = pred.shape
+    y = 1.0 / (1.0 + torch.exp(-pred.float()))
+    dev = pred.device
+    gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    anchors = anchors_px.to(dev, torch.float32)
+    bx = (y[..., 0] * 2.0 - 0.5 + gx[None, :, :, None]) * stride
+    by = (y[..., 1] * 2.0 - 0.5 + gy[None, :, :, None]) * stride
+    bw = sigmoid_bin_decode(y[..., 2:2 + n], cfgb) * anchors[:, 0]
+    bh = sigmoid_bin_decode(y[..., 2 + n:2 + 2 * n], cfgb) * anchors[:, 1]
+    box = torch.stack([bx, by, bw, bh], dim=-1)
+    if normalized:
+        s = float(stride)
+        box = box / torch.tensor([w * s, h * s, w * s, h * s], dtype=torch.float32, device=dev)
+    out = torch.cat([box, y[..., 2 + 2 * n:]], dim=-1)
+    return out.reshape(bs, h * w * na, out.shape[-1])
+
+
+def decode_outputs_bin(preds: Sequence[torch.Tensor], anchors: Sequence,
+                       strides: Sequence[float], bin_count: int = 21,
+                       normalized: bool = True) -> torch.Tensor:
+    """All IBin levels -> ``(bs, total, 5+nc)``.
+
+    CUDA tensors go through kernel K4; CPU tensors through ``decode_level_bin``."""
+    device = preds[0].device
+    _check_device(device)
+    if device.type == "cuda":
+        from ..kernels.bin_decode import decode_outputs_bin_cuda
+        return decode_outputs_bin_cuda(preds, anchors, strides, bin_count, normalized)
+    return torch.cat([decode_level_bin(p, torch.tensor(a, dtype=torch.float32), float(s),
+                                       bin_count, normalized)
                       for p, a, s in zip(preds, anchors, strides)], dim=1)
