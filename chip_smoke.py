@@ -32,8 +32,13 @@ failure exits non-zero before the result line.
    counters are set to 0 just before each path and read just after; every
    kernel of the path must have launched (K4 3 times and K5 24 times a
    request). Each path prints its stage times from CUDA events and a short
-   profiler window; the default path also the host's enqueue time. Then
-   the three paths' forward and request times, measured in turns.
+   profiler window; the default and fused-tail paths also the host's
+   enqueue time. Then the three paths' forward and request times, measured
+   in turns.
+
+Kernel times are device times: ``cuda_ms`` holds the stream with a sleep
+kernel while the host enqueues the timed calls, so that a kernel shorter
+than its wrapper's host time is not timed at the host's pace.
 
 Before the last line it prints the ``kernels`` JSON line (time, bound,
 launches, error of each kernel) and the card's name and power limit; the
@@ -69,12 +74,22 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds of ``fn`` over ``iters`` calls (CUDA events)."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, hold: bool = True) -> float:
+    """Mean device milliseconds of ``fn`` over ``iters`` calls (CUDA events).
+    With ``hold`` (kernels) the stream first waits on a sleep kernel long
+    enough for the host to enqueue every call, so the calls run back to back
+    at the card's pace; without it (requests) the host sets the pace, as it
+    does for a user."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if hold:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0           # one call, host and card together
+        torch.cuda._sleep(int(min(2e9, 3e9 * host_s * iters + 2e5)))   # cycles at about 2 GHz
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -154,23 +169,29 @@ def min_bin_gap(maps, nbin: int) -> float:
 
 def fused_tail_shapes():
     """(C_in, C_out, H, W) of every K5 call of one yolov7 @640 fused-tail
-    request, in call order, read off a batch-1 forward on the card."""
+    request at batch 16, in call order, read off a forward on the card;
+    each call must take the wgmma + TMA form (``form_for``)."""
     import torch
     from yolo_continuous_tpu_torch.detect_api import Detector
+    from yolo_continuous_tpu_torch.kernels.fused_conv import form_for
     from yolo_continuous_tpu_torch.nn import layers
-    shapes, fn = [], layers.fused_pointwise_conv
+    shapes, forms, fn = [], [], layers.fused_pointwise_conv
 
     def record(x, w, scale, bias):
         shapes.append((x.shape[1], w.shape[0], x.shape[2], x.shape[3]))
+        forms.append(form_for(x, w))
         return fn(x, w, scale, bias)
 
     det = Detector(random_weights_plan(), device="cuda", seed=0, fused_tails=True)
     layers.fused_pointwise_conv = record
     try:
-        det.forward(torch.zeros(1, SIZE, SIZE, 3, device="cuda"))
+        with torch.inference_mode():
+            det.forward(torch.zeros(BS, SIZE, SIZE, 3, device="cuda"))
     finally:
         layers.fused_pointwise_conv = fn
     torch.cuda.synchronize()
+    if set(forms) != {"wgmma"}:
+        fail(f"yolov7 @640 fused tails: K5 forms {forms}, every call must take wgmma")
     return shapes
 
 
@@ -217,6 +238,8 @@ def phase_kernels(spec, bin_spec, k5_shapes):
              "nms_suppress_tiled": [(4096, nms_inputs(rs, 4096, BS)),
                                     (2048, nms_inputs(rs, 2048, BS)),
                                     (4096, dense_inputs(rs, 4096, 4)),
+                                    (8192, nms_inputs(rs, 8192, 4)),
+                                    (8192, dense_inputs(rs, 8192, 4)),
                                     (2048, chain_inputs(2048))]}
     for name, fn in (("nms_suppress", nms_suppress), ("nms_suppress_tiled", nms_suppress_tiled)):
         err = 0.0
@@ -243,10 +266,23 @@ def phase_kernels(spec, bin_spec, k5_shapes):
             bound_by="operations" if ops / FP32_FLOP_S > nbytes / HBM_BYTES_S else "bytes",
             library_ms=None)
         print(f"{name}: timed at K={k} x {b} images", flush=True)
+    tiled_phases(*cases["nms_suppress_tiled"][0][1])
 
     report["decode_level_bin"] = check_bin_decode(g, bin_spec)
     report["fused_conv"] = check_fused_conv(g, k5_shapes)
     return report
+
+
+def tiled_phases(boxes, classes, valid) -> None:
+    """K2's two launches timed apart (mask across all SMs, one-CTA-per-image
+    sweep), on one scratch mask."""
+    from yolo_continuous_tpu_torch.kernels.nms import _launch, tiled_scratch
+    scratch = tiled_scratch(boxes)
+    phases = {f"{fn.split('_')[-1]}_ms": cuda_ms(lambda: _launch(fn, boxes, classes, valid, IOU,
+                                                                  scratch=scratch))
+              for fn in ("nms_tiled_mask", "nms_tiled_sweep")}
+    b, k = boxes.shape[:2]
+    print(json.dumps({"nms_suppress_tiled_phases": dict(k=k, batch=b, **phases)}), flush=True)
 
 
 def check_bin_decode(g, spec) -> dict:
@@ -306,33 +342,66 @@ def k5_compare(args, tol) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def host_us(fn, calls: int = 100) -> float:
+    """Host microseconds to enqueue one call, on an idle card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def check_fused_conv(g, shapes) -> dict:
     """K5 against its plain version at every main-path shape (bf16, batch
-    16), one fp32 case and ragged ones; times against cuDNN's bf16 conv of
-    the same products and against the port's unfused Conv."""
+    16), one fp32 case and ragged ones; each main-path call rerun for
+    bit-equal outputs. Times the wgmma form beside the mma.sync form, cuDNN's
+    bf16 conv and cuBLAS's batched matmul of the same products, and the
+    port's unfused Conv."""
     import torch
     import torch.nn.functional as F
-    from yolo_continuous_tpu_torch.kernels.fused_conv import (fused_pointwise_conv_cuda,
-                                                              fused_pointwise_conv_plain)
+    from yolo_continuous_tpu_torch.kernels.fused_conv import (form_for, fused_pointwise_conv_cuda,
+                                                              fused_pointwise_conv_plain,
+                                                              launch_form, reciprocal_mismatches)
     from yolo_continuous_tpu_torch.nn.layers import Conv
 
-    # ragged: C, N and HW off the tiles with vector loads; C and HW not
-    # multiples of 8 (element loads); one fp32 main-path shape and a ragged one
-    for dtype, (b, c, n, h, w) in ((torch.bfloat16, (BS, 1024, 200, 9, 16)),
-                                   (torch.bfloat16, (3, 520, 72, 9, 15)),
-                                   (torch.float32, (BS, 512, 256, 20, 20)),
-                                   (torch.float32, (3, 37, 19, 3, 5))):
+    t0 = time.perf_counter()
+    bad = reciprocal_mismatches("cuda")
+    print(f"K5 epilogue: branch-free 1/d differs from __fdiv_rn(1, d) on {bad} of the floats "
+          f"d in [1, 2^126) ({time.perf_counter() - t0:.2f} s)", flush=True)
+    if bad:
+        fail("K5: the wgmma form's epilogue does not round as bn_silu does")
+
+    # ragged: C, N and HW off the tiles (wgmma: N 200, HW 144 and 120);
+    # C or HW not a multiple of 8 (mma.sync); one fp32 main-path shape and a
+    # ragged one
+    for dtype, (b, c, n, h, w), form in (
+            (torch.bfloat16, (BS, 1024, 200, 9, 16), "wgmma"),
+            (torch.bfloat16, (3, 520, 72, 8, 15), "wgmma"),
+            (torch.bfloat16, (3, 520, 72, 9, 15), "mma_sync"),
+            (torch.bfloat16, (2, 36, 24, 5, 8), "mma_sync"),
+            (torch.float32, (BS, 512, 256, 20, 20), "fma"),
+            (torch.float32, (3, 37, 19, 3, 5), "fma")):
         key = "bf16" if dtype == torch.bfloat16 else "fp32"
-        err = k5_compare(k5_inputs(g, b, c, n, h, w, dtype), K5_TOL[key])
-        print(f"K5 {key} ({b}, {c}, {h}, {w}) -> {n}: max_abs_err {err:.3g} "
+        args = k5_inputs(g, b, c, n, h, w, dtype)
+        if form_for(args[0], args[1]) != form:
+            fail(f"K5 ({b}, {c}, {h}, {w}) -> {n} takes {form_for(args[0], args[1])}, not {form}")
+        err = k5_compare(args, K5_TOL[key])
+        print(f"K5 {key} {form} ({b}, {c}, {h}, {w}) -> {n}: max_abs_err {err:.3g} "
               f"(tol {K5_TOL[key]})", flush=True)
 
-    tot = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, unfused_ms=0.0,
-               bytes_s=0.0, ops_s=0.0, bound_ms=0.0)
+    names = ("ms", "mma_sync_ms", "plain_ms", "cudnn_ms", "cublas_ms", "unfused_ms")
+    tot = dict.fromkeys(names + ("bound_ms", "bytes_s", "ops_s"), 0.0)
+    err_max = 0.0
     for c, n, h, w in shapes:
         args = k5_inputs(g, BS, c, n, h, w, torch.bfloat16)
-        tot["err"] = max(tot["err"], k5_compare(args, K5_TOL["bf16"]))
+        err_max = max(err_max, k5_compare(args, K5_TOL["bf16"]))
         x, wt, scale, bias = args
+        if not torch.equal(fused_pointwise_conv_cuda(*args), fused_pointwise_conv_cuda(*args)):
+            fail(f"K5 at ({BS}, {c}, {h}, {w}) -> {n}: two calls on one input differ")
         conv = Conv(c, n, 1, 1).cuda().eval()
         conv.conv.to(torch.bfloat16)
         with torch.no_grad():
@@ -340,27 +409,38 @@ def check_fused_conv(g, shapes) -> dict:
             conv.bn.running_var.copy_(scale)
             conv.bn.running_mean.copy_(bias)
         w4 = wt[:, :, None, None].contiguous()
+        xv = x.view(BS, c, h * w)
         with torch.inference_mode():
+            # the wgmma and mma.sync forms back to back, then the yardsticks
             tot["ms"] += cuda_ms(lambda: fused_pointwise_conv_cuda(*args), iters=10)
+            tot["mma_sync_ms"] += cuda_ms(lambda: launch_form(*args, "mma_sync"), iters=10)
             tot["plain_ms"] += cuda_ms(lambda: fused_pointwise_conv_plain(*args), iters=5)
-            tot["library_ms"] += cuda_ms(lambda: F.conv2d(x, w4), iters=10)
+            tot["cudnn_ms"] += cuda_ms(lambda: F.conv2d(x, w4), iters=10)
+            tot["cublas_ms"] += cuda_ms(lambda: torch.matmul(wt, xv), iters=10)
             tot["unfused_ms"] += cuda_ms(lambda: conv(x), iters=10)
         nbytes = (BS * c * h * w + n * c + BS * n * h * w) * 2 + 2 * n * 4
         ops = 2.0 * BS * n * c * h * w
         tb, to = nbytes / HBM_BYTES_S * 1e3, ops / BF16_FLOP_S * 1e3
         tot["bound_ms"] += max(tb, to)
         tot["bytes_s" if tb >= to else "ops_s"] += max(tb, to)
-        del args, x, wt, scale, bias, conv, w4
+        del args, x, wt, scale, bias, conv, w4, xv
+    args = k5_inputs(g, BS, 512, 256, 40, 40, torch.bfloat16)
+    host = {f"host_us_per_call_{form}": host_us(lambda: launch_form(*args, form))
+            for form in ("wgmma", "mma_sync")}
     print(json.dumps({"fused_conv_shapes": dict(
-        calls=len(shapes), batch=BS, shapes_c_n_h_w=[list(s) for s in shapes],
-        max_abs_err=tot["err"], k5_ms=tot["ms"], unfused_conv_bn_silu_ms=tot["unfused_ms"],
-        cudnn_conv2d_bf16_ms=tot["library_ms"], plain_ms=tot["plain_ms"],
-        bound_ms=tot["bound_ms"], bytes_bound_part_ms=tot["bytes_s"],
-        operations_bound_part_ms=tot["ops_s"])}), flush=True)
-    return dict(max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
+        calls=len(shapes), batch=BS, shapes_c_n_h_w=[list(s) for s in shapes], form="wgmma",
+        max_abs_err=err_max, bit_equal_reruns=True, k5_wgmma_ms=tot["ms"],
+        k5_mma_sync_ms=tot["mma_sync_ms"], cudnn_conv2d_bf16_ms=tot["cudnn_ms"],
+        cublas_matmul_bf16_ms=tot["cublas_ms"], unfused_conv_bn_silu_ms=tot["unfused_ms"],
+        plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bytes_bound_part_ms=tot["bytes_s"],
+        operations_bound_part_ms=tot["ops_s"], **host)}), flush=True)
+    if not tot["ms"] < tot["mma_sync_ms"]:
+        fail(f"K5: the wgmma form ({tot['ms']:.3f} ms) is not faster than the mma.sync form "
+             f"({tot['mma_sync_ms']:.3f} ms) over the 24 calls")
+    return dict(max_abs_err=err_max, ms=tot["ms"], plain_ms=tot["plain_ms"],
                 bound_ms=tot["bound_ms"],
                 bound_by="operations" if tot["ops_s"] > tot["bytes_s"] else "bytes",
-                library_ms=tot["library_ms"])
+                library_ms=min(tot["cudnn_ms"], tot["cublas_ms"]))
 
 
 def random_weights_plan(model_cfg=None):
@@ -526,10 +606,10 @@ def stage_times(det, images, decode):
         maps = det.forward(images)
         pred = decode(maps)
         stages = dict(
-            forward_ms=cuda_ms(lambda: det.forward(images), iters=10),
-            decode_ms=cuda_ms(lambda: decode(maps)),
-            nms_ms=cuda_ms(lambda: batched_nms(pred, CONF, IOU, 300)),
-            total_ms=cuda_ms(lambda: det(images, CONF, IOU, 300), iters=10))
+            forward_ms=cuda_ms(lambda: det.forward(images), iters=10, hold=False),
+            decode_ms=cuda_ms(lambda: decode(maps), hold=False),
+            nms_ms=cuda_ms(lambda: batched_nms(pred, CONF, IOU, 300), hold=False),
+            total_ms=cuda_ms(lambda: det(images, CONF, IOU, 300), iters=10, hold=False))
     stages["img_s"] = BS / stages["total_ms"] * 1e3
     return stages
 
@@ -577,7 +657,7 @@ def phase_main():
             def decode(maps):
                 return decode_outputs(maps, spec.anchors, spec.strides)
         stages = stage_times(det, images, decode)
-        if label == "default":
+        if label in ("default", "fused_tails"):
             # host time to enqueue one request on an idle card: near total_ms,
             # the host and not the card sets the pace
             host_ms = []
@@ -604,9 +684,9 @@ def phase_main():
             for label in (list(dets) if r % 2 == 0 else list(dets)[::-1]):
                 det = dets[label]
                 turns[label]["forward_ms"].append(
-                    cuda_ms(lambda: det.forward(images), iters=10, warmup=2))
+                    cuda_ms(lambda: det.forward(images), iters=10, warmup=2, hold=False))
                 turns[label]["total_ms"].append(
-                    cuda_ms(lambda: det(images, CONF, IOU, 300), iters=10, warmup=2))
+                    cuda_ms(lambda: det(images, CONF, IOU, 300), iters=10, warmup=2, hold=False))
     print(json.dumps({"paths_in_turns": {
         label: dict(median_forward_ms=float(np.median(t["forward_ms"])),
                     median_total_ms=float(np.median(t["total_ms"])), **t)

@@ -10,6 +10,16 @@ import numpy as np
 ANCHORS = [[12, 16, 19, 36, 40, 28], [36, 75, 76, 55, 72, 146],
            [142, 110, 192, 243, 459, 401]]
 
+# (C_in, C_out, H, W) of the 24 fused-tail Convs of cfg/net/yolov7.yaml at
+# 640 px, in call order: the shapes that kernel K5 takes on the main path
+YOLOV7_640_FUSED_TAILS = [
+    (512, 512, 80, 80), (512, 256, 40, 40), (512, 256, 80, 80), (512, 256, 40, 40),
+    (512, 256, 40, 40), (1024, 1024, 40, 40), (1024, 512, 20, 20), (1024, 512, 40, 40),
+    (1024, 256, 20, 20), (1024, 256, 20, 20), (1024, 1024, 20, 20), (512, 256, 20, 20),
+    (1024, 256, 40, 40), (512, 256, 40, 40), (512, 256, 40, 40), (1024, 256, 40, 40),
+    (512, 128, 80, 80), (512, 128, 80, 80), (512, 256, 40, 40), (512, 256, 40, 40),
+    (1024, 256, 40, 40), (1024, 512, 20, 20), (1024, 512, 20, 20), (2048, 512, 20, 20)]
+
 
 def lively(tree, rs: np.random.RandomState, parent: str = ""):
     """Redraw every leaf of a JAX params / batch_stats tree (nested dicts).

@@ -13,13 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import ibin_logits, min_bin_gap, tiny_plan_cfg
+from _torch_port import YOLOV7_640_FUSED_TAILS, ibin_logits, min_bin_gap, tiny_plan_cfg
 from yolo_continuous_tpu_torch.config.plan import TrainPlan
 from yolo_continuous_tpu_torch.detect_api import Detector
 from yolo_continuous_tpu_torch.kernels.bin_decode import decode_outputs_bin_cuda
 from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda
-from yolo_continuous_tpu_torch.kernels.fused_conv import (fused_pointwise_conv_cuda,
-                                                          fused_pointwise_conv_plain)
+from yolo_continuous_tpu_torch.kernels.fused_conv import (form_for, fused_pointwise_conv_cuda,
+                                                          fused_pointwise_conv_plain,
+                                                          reciprocal_mismatches)
 from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
 from yolo_continuous_tpu_torch.nn.heads import head_view
 from yolo_continuous_tpu_torch.ops.decode import decode_level, decode_level_bin
@@ -73,6 +74,28 @@ def test_nms_kernels_match_plain(cuda, kernel, k):
     want = suppress_plain(*args, 0.45)
     assert torch.equal(got, want)
     assert 0 < int(got.sum()) < int(args[2].sum())
+
+
+@pytest.mark.parametrize("k,bs,nc", [(8192, 2, 3), (8192, 2, 80), (1025, 3, 3)])
+def test_tiled_nms_kernel_matches_plain_at_large_k(cuda, k, bs, nc):
+    args = _boxes(np.random.RandomState(k + nc), bs, k, nc)
+    got = nms_suppress_tiled(*args, 0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(got, suppress_plain(*args, 0.45))
+    assert 0 < int(got.sum()) < int(args[2].sum())
+
+
+def test_tiled_nms_kernel_keeps_every_other_box_of_a_chain(cuda):
+    """Each box overlaps the next (IoU 7/13) and not the one after: the
+    greedy keep-set is every other box, a 2048-deep chain for a fixpoint."""
+    k = 2048
+    x = torch.arange(k, dtype=torch.float32, device=cuda) * 3.0
+    boxes = torch.stack([x, torch.zeros_like(x), x + 10.0, torch.full_like(x, 10.0)], -1)[None]
+    classes = torch.zeros(1, k, dtype=torch.int32, device=cuda)
+    valid = torch.ones(1, k, dtype=torch.bool, device=cuda)
+    got = nms_suppress_tiled(boxes.contiguous(), classes, valid, 0.45)
+    assert torch.equal(got[0], torch.arange(k, device=cuda) % 2 == 0)
+    assert torch.equal(got, suppress_plain(boxes, classes, valid, 0.45))
 
 
 def test_suppress_dispatches_by_k(cuda):
@@ -147,3 +170,60 @@ def test_detector_paths_launch_k4_and_k5(cuda):
     det.forward(np.zeros((1, 64, 64, 3), np.float32))
     torch.cuda.synchronize()
     assert fused_pointwise_conv_cuda.launches - n5 == 24
+
+
+def _k5_args(device, b, c, n, h, w, dtype=torch.bfloat16):
+    g = torch.Generator(device=device).manual_seed(c * 7 + n + h)
+    x = torch.randn(b, c, h, w, device=device, generator=g).to(dtype)
+    wt = (torch.randn(n, c, device=device, generator=g) / c ** 0.5).to(dtype)
+    scale = torch.rand(n, device=device, generator=g) + 0.5
+    bias = torch.randn(n, device=device, generator=g) * 0.1
+    return x, wt, scale, bias
+
+
+@pytest.mark.parametrize("c,n,h,w", sorted(set(YOLOV7_640_FUSED_TAILS)))
+def test_fused_conv_wgmma_form_at_main_path_shapes(cuda, c, n, h, w):
+    """Each distinct shape of yolov7 @640's fused tails at batch 2: the
+    wgmma + TMA form, within one bf16 ulp of the plain version, and
+    bit-equal when run again."""
+    args = _k5_args(cuda, 2, c, n, h, w)
+    assert form_for(args[0], args[1]) == "wgmma"
+    got = fused_pointwise_conv_cuda(*args)
+    again = fused_pointwise_conv_cuda(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), fused_pointwise_conv_plain(*args).float(),
+                               rtol=8e-3, atol=1e-3)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("c,n,h,w,form", [(520, 72, 9, 15, "mma_sync"), (36, 24, 5, 8, "mma_sync"),
+                                          (1024, 200, 9, 16, "wgmma"), (520, 72, 8, 15, "wgmma"),
+                                          (64, 8, 1, 8, "wgmma")])
+def test_fused_conv_ragged_shapes_take_their_form(cuda, c, n, h, w, form):
+    """C or H*W not a multiple of 8 take mma.sync; ragged channel and pixel
+    tiles of the wgmma form are clipped by its TMA stores."""
+    args = _k5_args(cuda, 3, c, n, h, w)
+    assert form_for(args[0], args[1]) == form
+    got = fused_pointwise_conv_cuda(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), fused_pointwise_conv_plain(*args).float(),
+                               rtol=8e-3, atol=1e-3)
+    assert torch.equal(got, fused_pointwise_conv_cuda(*args))
+
+
+def test_fused_conv_epilogue_reciprocal_is_exact(cuda):
+    """The wgmma form's branch-free 1/d equals __fdiv_rn(1, d) on every
+    float d in [1, 2^126), all 1.06e9 of them."""
+    assert reciprocal_mismatches(cuda) == 0
+
+
+def test_fused_conv_wgmma_form_where_exp_overflows(cuda):
+    """Inputs 200x larger put a third of the y below -88.7, where e^-y
+    overflows, and some in (-88.7, -87.3], where 1/d would be subnormal and
+    the epilogue takes bn_silu: both agree with the plain version."""
+    x, wt, scale, bias = _k5_args(cuda, 2, 512, 256, 20, 20)
+    x = (x.float() * 200.0).bfloat16()
+    got = fused_pointwise_conv_cuda(x, wt, scale, bias)
+    want = fused_pointwise_conv_plain(x, wt, scale, bias)
+    assert (want == 0).float().mean() > 0.1                 # many SiLUs rounded to -0
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3, atol=1e-3)

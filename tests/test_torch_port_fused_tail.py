@@ -14,7 +14,7 @@ import yaml
 import jax
 import jax.numpy as jnp
 
-from _torch_port import lively, min_score_gap
+from _torch_port import YOLOV7_640_FUSED_TAILS, lively, min_score_gap
 from yolo_continuous_tpu.config.plan import TrainPlan as JaxPlan
 from yolo_continuous_tpu.config.plan import cvt_cfg as jax_cvt_cfg
 from yolo_continuous_tpu.detect_api import Detector as JaxDetector
@@ -115,9 +115,50 @@ def test_fused_conv_kernel_takes_cuda_tensors_only():
     x, w, v = torch.zeros(1, 8, 2, 2), torch.zeros(4, 8), torch.zeros(4)
     with pytest.raises(ValueError, match="CUDA"):
         fused_conv.fused_pointwise_conv_cuda(x, w, v, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_conv.launch_form(x.bfloat16(), w.bfloat16(), v, v, "wgmma")
     with pytest.raises(ValueError, match="CUDA .* or CPU"):
         fused_conv.fused_pointwise_conv(x.to("meta"), w, v, v)
     assert fused_conv.fused_pointwise_conv_cuda.launches == 0
+
+
+# --- which form of K5 a call takes --------------------------------------------
+
+
+def _bf16(*shape):
+    return torch.empty(shape, dtype=torch.bfloat16, device="meta")   # no storage, aligned
+
+
+def test_form_for_takes_wgmma_for_every_main_path_call(monkeypatch):
+    """The 24 eligible Convs of yolov7, traced at 64 px on the CPU: at 640 px
+    (every map 10x wider) each call takes the TMA + wgmma form."""
+    shapes = []
+    fn = layers.fused_pointwise_conv
+    monkeypatch.setattr(layers, "fused_pointwise_conv", lambda x, w, s, b: shapes.append(
+        (x.shape[1], w.shape[0], 10 * x.shape[2], 10 * x.shape[3])) or fn(x, w, s, b))
+    Detector(TrainPlan(_cfg()), device="cpu", fused_tails=True).forward(
+        np.zeros((1, SIZE, SIZE, 3), np.float32))
+    assert shapes == YOLOV7_640_FUSED_TAILS
+    for c, n, h, w in shapes:
+        assert fused_conv.form_for(_bf16(16, c, h, w), _bf16(n, c)) == "wgmma"
+
+
+@pytest.mark.parametrize("c,h,w", [(520, 9, 15), (37, 8, 8), (1020, 20, 20), (512, 5, 7),
+                                   (512, 1, 4)])
+def test_form_for_takes_mma_sync_where_tma_cannot(c, h, w):
+    """C or H*W not a multiple of 8: a row of the tensor map would not be a
+    multiple of 16 bytes."""
+    assert (c % 8, h * w % 8) != (0, 0)
+    assert fused_conv.form_for(_bf16(2, c, h, w), _bf16(64, c)) == "mma_sync"
+
+
+def test_form_for_takes_mma_sync_for_a_misaligned_pointer_and_fma_for_fp32():
+    flat = torch.zeros(1 + 2 * 512 * 64, dtype=torch.bfloat16)
+    x = flat[1:].view(2, 512, 8, 8)                       # 2 bytes past an aligned start
+    w = torch.zeros(64, 512, dtype=torch.bfloat16)
+    assert x.data_ptr() % 16 and fused_conv.form_for(x, w) == "mma_sync"
+    assert fused_conv.form_for(flat[:-1].view(2, 512, 8, 8), w) == "wgmma"
+    assert fused_conv.form_for(x.float(), w.float()) == "fma"
 
 
 # --- the fused-tail Detector -------------------------------------------------

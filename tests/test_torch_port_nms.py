@@ -14,7 +14,8 @@ from _torch_port import min_score_gap
 from yolo_continuous_tpu.kernels.nms_pallas import pallas_suppress, pallas_suppress_tiled
 from yolo_continuous_tpu.ops import nms as jax_nms
 from yolo_continuous_tpu.ops.boxes import box_iou as jax_box_iou
-from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
+from yolo_continuous_tpu_torch.kernels.nms import (K2_MAX, mask_words, nms_suppress,
+                                                    nms_suppress_tiled, tiled_scratch)
 from yolo_continuous_tpu_torch.ops import nms
 from yolo_continuous_tpu_torch.ops.boxes import box_iou
 
@@ -139,3 +140,16 @@ def test_nms_kernels_take_cuda_tensors_only(kernel):
     with pytest.raises(ValueError, match="CUDA"):
         kernel(boxes, classes, valid, 0.5)
     assert kernel.launches == 0
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 1025, 1500, 4096, K2_MAX])
+def test_k2_mask_rows_cover_k_columns_in_16_byte_words(k):
+    words = mask_words(k)
+    assert words % 4 == 0 and 32 * words >= k and 32 * (words - 4) < k
+
+
+def test_k2_scratch_is_one_mask_row_per_candidate():
+    boxes = torch.zeros(3, 1500, 4)
+    scratch = tiled_scratch(boxes)
+    assert scratch.shape == (3, 1500, 48) and scratch.dtype == torch.int32
+    assert tiled_scratch(torch.zeros(16, 4096, 4)).numel() * 4 == 32 << 20    # 32 MB

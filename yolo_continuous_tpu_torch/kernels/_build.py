@@ -4,8 +4,10 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface, loaded with ``ctypes``. Libraries
 are built at first use, from the sources in this checkout only, into
 ``_build/`` beside the package (listed in ``.gitignore``); the file name
-carries a hash of the source and the flags, so an edited source rebuilds.
-``build()`` compiles several sources in parallel, one ``nvcc`` each.
+carries a hash of the source, every ``csrc/*.cuh`` header and the flags
+(global and the source's own), so an edited source, header or flag
+rebuilds. ``build()`` compiles several sources in parallel, one ``nvcc``
+each.
 
 Nothing here touches CUDA when the module is imported, so the CPU tests can
 import every module of the port.
@@ -26,6 +28,9 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source, after it on the command line: K5 encodes TMA tensor
+# maps with cuTensorMapEncodeTiled, which libcuda provides
+SOURCE_FLAGS: Dict[str, tuple] = {"fused_conv": ("-lcuda",)}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points of each source: name -> argtypes (all return a cudaError_t as int)
@@ -36,15 +41,19 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "nms": {
         "nms_suppress": (_P, _P, _P, _P, _I, _I, _F, _P),
-        "nms_suppress_tiled": (_P, _P, _P, _P, _I, _I, _F, _P),
+        "nms_suppress_tiled": (_P, _P, _P, _P, _P, _L, _I, _I, _F, _P),
+        "nms_tiled_mask": (_P, _P, _P, _P, _P, _L, _I, _I, _F, _P),
+        "nms_tiled_sweep": (_P, _P, _P, _P, _P, _L, _I, _I, _F, _P),
     },
     "bin_decode": {
         "decode_level_bin": (_P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
                              ctypes.POINTER(_F), _I, _I, _F, _P),
     },
     "fused_conv": {
+        "fused_conv_bf16_wgmma": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "fused_conv_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "fused_conv_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "fused_conv_check_rcp": (ctypes.c_uint, ctypes.c_uint, _P, _P),
     },
 }
 
@@ -61,9 +70,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + ("--",) + SOURCE_FLAGS.get(name, ())).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
@@ -77,7 +88,8 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *SOURCE_FLAGS.get(name, ())]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
     logs, failed = {}, []

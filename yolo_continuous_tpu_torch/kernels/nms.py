@@ -7,9 +7,11 @@ Wrappers of ``csrc/nms.cu``, which replaces the TPU kernels of
 ``ops/nms.py::suppress_plain``; ``ops/nms.py::suppress`` sends CPU tensors
 there and CUDA tensors here, split at K = 1024 as ``ops/nms.py:100-109``.
 
-Both take a batch of score-sorted top-K candidates, one CTA per image:
-boxes ``(B, K, 4)`` fp32 xyxy, classes ``(B, K)`` int32, valid ``(B, K)``
-bool, and return keep ``(B, K)`` bool.
+Both take a batch of score-sorted top-K candidates: boxes ``(B, K, 4)``
+fp32 xyxy, classes ``(B, K)`` int32, valid ``(B, K)`` bool, and return keep
+``(B, K)`` bool. K1 runs one CTA per image; K2 first builds the suppression
+bitmask across all SMs into a scratch tensor that its wrapper allocates,
+then sweeps it with one CTA per image.
 """
 from __future__ import annotations
 
@@ -18,7 +20,13 @@ import torch
 from . import _build
 
 K1_MAX = 1024   # K1 keeps a K x K bitmask in shared memory: 128 KB at 1024
-K2_MAX = 8192   # K2 keeps K boxes in shared memory: 24 B each
+K2_MAX = 8192   # K2's sweep: 1 KB of keep words, 192 KB of mask rows; its mask is 8 MB an image
+
+
+def mask_words(k: int) -> int:
+    """uint32 words of one row of K2's mask: ceil(K/32), rounded up to 4
+    (``csrc/nms.cu::mask_stride``)."""
+    return ((k + 31) // 32 + 3) // 4 * 4
 
 
 def _check(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor, k_max: int, what: str):
@@ -42,14 +50,24 @@ def _check(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor, k_ma
         raise ValueError(f"{what} takes K <= {k_max}, got {k}")
 
 
-def _launch(fn: str, boxes, classes, valid, iou_thres: float) -> torch.Tensor:
+def _launch(fn: str, boxes, classes, valid, iou_thres: float, scratch=None) -> torch.Tensor:
+    """One C entry point of ``csrc/nms.cu``; K2's take the mask ``scratch``."""
     keep = torch.empty(valid.shape, device=valid.device, dtype=torch.bool)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    err = getattr(_build.library("nms"), fn)(
-        boxes.data_ptr(), classes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-        boxes.shape[0], boxes.shape[1], float(iou_thres), stream)
+    ptrs = (boxes.data_ptr(), classes.data_ptr(), valid.data_ptr(), keep.data_ptr())
+    if scratch is not None:
+        ptrs += (scratch.data_ptr(), scratch.numel() * scratch.element_size())
+    err = getattr(_build.library("nms"), fn)(*ptrs, boxes.shape[0], boxes.shape[1],
+                                             float(iou_thres), stream)
     _build.check(err, fn)
     return keep
+
+
+def tiled_scratch(boxes: torch.Tensor) -> torch.Tensor:
+    """K2's mask: (B, K, mask_words(K)) uint32 words (as int32), 32 MB at
+    K = 4096 x 16 images and 128 MB at K2_MAX x 16."""
+    b, k = boxes.shape[:2]
+    return torch.empty((b, k, mask_words(k)), device=boxes.device, dtype=torch.int32)
 
 
 def nms_suppress(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor,
@@ -63,9 +81,11 @@ def nms_suppress(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor
 
 def nms_suppress_tiled(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor,
                        iou_thres: float) -> torch.Tensor:
-    """K2: on-device fixpoint with IoUs recomputed per sweep (any K <= 8192)."""
+    """K2: the bitmask across all SMs, then a sweep of it, one CTA per image
+    (any K <= 8192)."""
     _check(boxes, classes, valid, K2_MAX, "nms_suppress_tiled")
-    keep = _launch("nms_suppress_tiled", boxes, classes, valid, iou_thres)
+    keep = _launch("nms_suppress_tiled", boxes, classes, valid, iou_thres,
+                   scratch=tiled_scratch(boxes))
     nms_suppress_tiled.launches += int(boxes.numel() > 0)
     return keep
 
