@@ -11,11 +11,12 @@ failure exits non-zero before the result line.
    each, in parallel) and prints the seconds and the ptxas report.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the main paths: K3 decode on the three yolov7 @640 levels
-   at batch 16; K1 NMS at K = 300 x 16 images; K2 NMS at K = 2048 and 4096
+   at batch 16, in its TMA form (one launch for all levels), held bit-equal
+   to its strided form and timed beside it; K1 NMS at K = 300 x 16 images; K2 NMS at K = 2048 and 4096
    (NMS inputs are 25200 random candidates per image cut to the top K, as
    the JAX bench builds them, plus a chained-overlap case; keep-sets must
    be identical); K4 IBin decode on the three yolov7-IBin @640 levels at
-   batch 16, under the argmax-gap precondition; K5 fused 1x1 conv + BN +
+   batch 16, under the argmax-gap precondition, its two forms as K3's; K5 fused 1x1 conv + BN +
    SiLU in bf16 at each of the 24 shapes that yolov7 @640 gives it at
    batch 16, plus fp32 and ragged cases. K5 is also timed against cuDNN's
    bf16 ``F.conv2d`` of the same products and the port's unfused ``Conv``.
@@ -30,8 +31,8 @@ failure exits non-zero before the result line.
    one at 4096 (which takes K2); (ibin) yolov7 with the head row swapped to
    IBin; (fused_tails) yolov7 with ``Detector(fused_tails=True)``. Launch
    counters are set to 0 just before each path and read just after; every
-   kernel of the path must have launched (K4 3 times and K5 24 times a
-   request). Each path prints its stage times from CUDA events and a short
+   kernel of the path must have launched (K3 or K4 once a request, in the
+   TMA form, and K5 24 times a request). Each path prints its stage times from CUDA events and a short
    profiler window; the default and fused-tail paths also the host's
    enqueue time. Then the three paths' forward and request times, measured
    in turns.
@@ -195,10 +196,21 @@ def fused_tail_shapes():
     return shapes
 
 
+def check_forms(what, kernel, maps) -> None:
+    """The TMA form of a decode kernel (``kernel(normalized, form)``) on maps
+    it must take: bit-equal to the strided form in both modes."""
+    import torch
+    for normalized in (True, False):
+        tma, strided = kernel(normalized, "tma"), kernel(normalized, "strided")
+        if not torch.equal(tma, strided):
+            fail(f"{what} (normalized={normalized}): the TMA form differs from the strided form in "
+                 f"{int((tma != strided).sum())} values")
+
+
 def phase_kernels(spec, bin_spec, k5_shapes):
     """Each kernel against its plain version at main-path shapes."""
     import torch
-    from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda
+    from yolo_continuous_tpu_torch.kernels.decode import form_for, launch_form
     from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
     from yolo_continuous_tpu_torch.nn.heads import head_view
     from yolo_continuous_tpu_torch.ops.decode import decode_level
@@ -214,22 +226,30 @@ def phase_kernels(spec, bin_spec, k5_shapes):
         return torch.cat([decode_level(m, torch.tensor(a), float(s), normalized)
                           for m, a, s in zip(maps, spec.anchors, spec.strides)], 1)
 
+    def kernel(normalized=True, form="tma"):
+        return launch_form(maps, spec.anchors, spec.strides, normalized, form)
+
+    if form_for(maps) != "tma":
+        fail(f"K3 at yolov7 @640: the head maps take the {form_for(maps)} form, not tma")
     report = {}
-    got = decode_outputs_cuda(maps, spec.anchors, spec.strides, True)
+    got = kernel(True)
     want = plain_decode(True)
     err = (got - want).abs().max().item()
     if not (got.shape == want.shape and err <= DECODE_TOL):
         fail(f"K3 decode: max abs err {err} > {DECODE_TOL} (shape {tuple(got.shape)})")
-    px_got = decode_outputs_cuda(maps, spec.anchors, spec.strides, False)
+    px_got = kernel(False)
     if not torch.allclose(px_got, plain_decode(False), rtol=1e-5, atol=1e-4):
         fail("K3 decode (pixel mode) disagrees with the plain version")
+    check_forms("K3 decode", kernel, maps)
     rows = got.shape[1]
     report["decode_level"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: decode_outputs_cuda(maps, spec.anchors, spec.strides, True)),
+        max_abs_err=err, ms=cuda_ms(kernel), strided_ms=cuda_ms(lambda: kernel(True, "strided")),
         plain_ms=cuda_ms(plain_decode),
         bound_ms=2 * BS * rows * no * 4 / HBM_BYTES_S * 1e3, bound_by="bytes", library_ms=None)
-    print(f"K3 decode: {BS}x{rows}x{no} max_abs_err {err:.3g} (tol {DECODE_TOL})", flush=True)
+    print(f"K3 decode: {BS}x{rows}x{no} max_abs_err {err:.3g} (tol {DECODE_TOL}); TMA form "
+          f"bit-equal to the strided form in both modes", flush=True)
+    print(json.dumps({"decode_host_us_per_call": {
+        form: host_us(lambda: kernel(True, form)) for form in ("tma", "strided")}}), flush=True)
     del maps, got, want, px_got
 
     rs = np.random.RandomState(0)
@@ -288,16 +308,18 @@ def tiled_phases(boxes, classes, valid) -> None:
 def check_bin_decode(g, spec) -> dict:
     """K4 against decode_level_bin on the yolov7-IBin @640 levels, batch 16."""
     import torch
-    from yolo_continuous_tpu_torch.kernels.bin_decode import decode_outputs_bin_cuda
+    from yolo_continuous_tpu_torch.kernels.bin_decode import form_for, launch_form
     from yolo_continuous_tpu_torch.ops.decode import decode_level_bin
     nb = spec.bin_count
     maps = ibin_maps(g, spec)
     gap = min_bin_gap(maps, nb)
     if not gap > BIN_GAP:
         fail(f"K4 inputs break the argmax-gap precondition: {gap} <= {BIN_GAP}")
+    if form_for(maps, nb) != "tma":
+        fail(f"K4 at yolov7-IBin @640: the head maps take the {form_for(maps, nb)} form, not tma")
 
-    def kernel(normalized=True):
-        return decode_outputs_bin_cuda(maps, spec.anchors, spec.strides, nb, normalized)
+    def kernel(normalized=True, form="tma"):
+        return launch_form(maps, spec.anchors, spec.strides, nb, normalized, form)
 
     def plain(normalized=True):
         return torch.cat([decode_level_bin(m, torch.tensor(a), float(s), nb, normalized)
@@ -309,10 +331,13 @@ def check_bin_decode(g, spec) -> dict:
         fail(f"K4 bin decode: max abs err {err} > {DECODE_TOL} (shape {tuple(got.shape)})")
     if not torch.allclose(kernel(False), plain(False), rtol=1e-5, atol=1e-4):
         fail("K4 bin decode (pixel mode) disagrees with the plain version")
+    check_forms("K4 bin decode", kernel, maps)
     rows, no_in, no_out = got.shape[1], maps[0].shape[-1], got.shape[-1]
     print(f"K4 bin decode: {BS}x{rows}x{no_in} -> {no_out} max_abs_err {err:.3g} "
-          f"(tol {DECODE_TOL}; min bin gap {gap:.3g})", flush=True)
-    return dict(max_abs_err=err, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+          f"(tol {DECODE_TOL}; min bin gap {gap:.3g}); TMA form bit-equal to the strided form "
+          f"in both modes", flush=True)
+    return dict(max_abs_err=err, ms=cuda_ms(kernel),
+                strided_ms=cuda_ms(lambda: kernel(True, "strided")), plain_ms=cuda_ms(plain),
                 bound_ms=BS * rows * (no_in + no_out) * 4 / HBM_BYTES_S * 1e3,
                 bound_by="bytes", library_ms=None)
 
@@ -437,8 +462,8 @@ def check_fused_conv(g, shapes) -> dict:
     if not tot["ms"] < tot["mma_sync_ms"]:
         fail(f"K5: the wgmma form ({tot['ms']:.3f} ms) is not faster than the mma.sync form "
              f"({tot['mma_sync_ms']:.3f} ms) over the 24 calls")
-    return dict(max_abs_err=err_max, ms=tot["ms"], plain_ms=tot["plain_ms"],
-                bound_ms=tot["bound_ms"],
+    return dict(max_abs_err=err_max, ms=tot["ms"], mma_sync_ms=tot["mma_sync_ms"],
+                plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
                 bound_by="operations" if tot["ops_s"] > tot["bytes_s"] else "bytes",
                 library_ms=min(tot["cudnn_ms"], tot["cublas_ms"]))
 
@@ -543,8 +568,8 @@ def phase_reference():
         n_valid, n_kept = check_rows_and_keep(
             "yolov7-IBin", decode_outputs_bin(maps_c, cpu.spec.anchors, cpu.spec.strides, nb),
             decode_outputs_bin(maps_g, gpu.spec.anchors, gpu.spec.strides, nb))
-    if decode_outputs_bin_cuda.launches - n4 != 3:
-        fail("yolov7-IBin reference: the CUDA rows did not come from K4")
+    if decode_outputs_bin_cuda.launches - n4 != 1:
+        fail("yolov7-IBin reference: the CUDA rows did not come from one K4 launch")
     print(f"reference: yolov7-IBin @64 fp32 CUDA == CPU (K4 rows atol 1e-4, min bin gap "
           f"{gap:.3g}); keep-set exact, {n_valid} valid, {n_kept} kept", flush=True)
 
@@ -618,6 +643,8 @@ def phase_main():
     """The main paths at full width, with launch counts and stage times."""
     import torch
     from yolo_continuous_tpu_torch.detect_api import Detector
+    from yolo_continuous_tpu_torch.kernels.bin_decode import form_for as bin_form_for
+    from yolo_continuous_tpu_torch.kernels.decode import form_for
     from yolo_continuous_tpu_torch.ops.decode import decode_outputs, decode_outputs_bin
 
     rs = np.random.RandomState(0)
@@ -626,13 +653,13 @@ def phase_main():
     paths = (
         ("default", dict(), (300, 300, 300, 4096),
          ("decode_outputs_cuda", "nms_suppress", "nms_suppress_tiled"),
-         {"decode_outputs_bin_cuda": 0, "fused_pointwise_conv_cuda": 0}),
+         {"decode_outputs_cuda": 4, "decode_outputs_bin_cuda": 0, "fused_pointwise_conv_cuda": 0}),
         ("ibin", dict(model_cfg=ibin_net()), (300, 300, 300),
          ("decode_outputs_bin_cuda", "nms_suppress"),
-         {"decode_outputs_bin_cuda": 9, "decode_outputs_cuda": 0, "fused_pointwise_conv_cuda": 0}),
+         {"decode_outputs_bin_cuda": 3, "decode_outputs_cuda": 0, "fused_pointwise_conv_cuda": 0}),
         ("fused_tails", dict(fused_tails=True), (300, 300, 300),
          ("fused_pointwise_conv_cuda", "decode_outputs_cuda", "nms_suppress"),
-         {"fused_pointwise_conv_cuda": 72, "decode_outputs_bin_cuda": 0}),
+         {"fused_pointwise_conv_cuda": 72, "decode_outputs_cuda": 3, "decode_outputs_bin_cuda": 0}),
     )
     dets = {}
     for label, kw, max_dets, must, exact in paths:
@@ -650,12 +677,21 @@ def phase_main():
             total[name] += n
 
         spec = det.spec
+        with torch.inference_mode():
+            maps = det.forward(images)
         if spec.head_name == "IBin":
+            form = bin_form_for(maps, spec.bin_count)
+
             def decode(maps):
                 return decode_outputs_bin(maps, spec.anchors, spec.strides, spec.bin_count)
         else:
+            form = form_for(maps)
+
             def decode(maps):
                 return decode_outputs(maps, spec.anchors, spec.strides)
+        if form != "tma":
+            fail(f"{label} path: the decode takes the {form} form, not tma")
+        del maps
         stages = stage_times(det, images, decode)
         if label in ("default", "fused_tails"):
             # host time to enqueue one request on an idle card: near total_ms,
@@ -772,11 +808,13 @@ def main() -> None:
     kernels = []
     for name, (src, replaces, counter) in meta.items():
         r = report[name]
+        # the form timed beside the main one: K3's and K4's strided form, K5's mma.sync form
+        other = {k: r[k] for k in ("strided_ms", "mma_sync_ms") if k in r}
         kernels.append(dict(name=name, route="cuda", source=f"yolo_continuous_tpu_torch/{src}",
                             replaces=replaces, launches=launches[counter],
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
+                            library_ms=r["library_ms"], **other))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -1,6 +1,9 @@
 """PyTorch port IBin decode (plain version of kernel K4) vs the JAX package's
 XLA ``decode_level_bin`` and its Pallas kernel in interpret mode, atol 1e-5.
 
+The K4 wrapper's choice of form and its level table are pure Python and are
+tested here too.
+
 Inputs hold the argmax-gap precondition: the top two sigmoided bins of every
 w/h value are more than 1e-5 apart, so exp() rounding cannot pick another
 bin (``_torch_port.ibin_logits``, ``min_bin_gap``).
@@ -15,7 +18,8 @@ from _torch_port import ibin_logits, min_bin_gap
 from yolo_continuous_tpu.kernels.bin_decode_pallas import decode_level_bin_pallas
 from yolo_continuous_tpu.ops import decode as jax_decode
 from yolo_continuous_tpu.ops import sigmoid_bin as jax_sb
-from yolo_continuous_tpu_torch.kernels.bin_decode import decode_outputs_bin_cuda
+from yolo_continuous_tpu_torch.kernels.bin_decode import decode_outputs_bin_cuda, form_for
+from yolo_continuous_tpu_torch.kernels.decode import level_table
 from yolo_continuous_tpu_torch.nn.heads import head_view
 from yolo_continuous_tpu_torch.ops import sigmoid_bin
 from yolo_continuous_tpu_torch.ops.decode import decode_level_bin, decode_outputs_bin
@@ -114,3 +118,57 @@ def test_bin_decode_kernel_takes_cuda_tensors_only():
 def test_bin_decode_dispatch_rejects_other_devices():
     with pytest.raises(ValueError, match="CUDA .* or CPU"):
         decode_outputs_bin([torch.zeros(1, 2, 2, 3, 49, device="meta")], [ANCHORS], [8])
+
+
+# --- the K4 wrapper's forms and level table (no card needed) -----------------
+
+IBIN_NO = 80 + 3 + 2 * 22        # 127 columns at 80 classes and 21 bins
+
+
+def _ibin_maps(sides, bs=2, na=3, no=IBIN_NO):
+    """Head views of NCHW IBin outputs, P3 first (uninitialised)."""
+    return [head_view(torch.empty(bs, na * no, h, w), na, no) for h, w in sides]
+
+
+@pytest.mark.parametrize("size", [640, 64])
+def test_form_for_takes_tma_for_the_yolov7_ibin_head_views(size):
+    assert form_for(_ibin_maps([(size // s, size // s) for s in (8, 16, 32)])) == "tma"
+
+
+@pytest.mark.parametrize("case", ["h*w % 4", "channels-last", "contiguous", "offset base",
+                                  "5 levels"])
+def test_ibin_form_for_takes_strided_where_tma_cannot(case):
+    if case == "h*w % 4":
+        maps = _ibin_maps([(8, 8), (3, 3)])
+    elif case == "channels-last":
+        y = torch.empty(2, 3 * IBIN_NO, 4, 4).to(memory_format=torch.channels_last)
+        maps = [head_view(y, 3, IBIN_NO)]
+    elif case == "contiguous":
+        maps = [m.contiguous() for m in _ibin_maps([(4, 4)])]
+    elif case == "offset base":
+        flat = torch.empty(2 + 2 * 3 * IBIN_NO * 16)
+        maps = [head_view(flat[2:].view(2, 3 * IBIN_NO, 4, 4), 3, IBIN_NO)]
+    else:
+        maps = _ibin_maps([(2, 2)] * 5)
+    assert form_for(maps) == "strided"
+
+
+def test_ibin_level_table_is_p3_first_with_pixel_anchors():
+    anchors = (ANCHORS, ((36.0, 75.0), (76.0, 55.0), (72.0, 146.0)),
+               ((142.0, 110.0), (192.0, 243.0), (459.0, 401.0)))
+    table = level_table(_ibin_maps([(80, 80), (40, 40), (20, 20)]), anchors, (8, 16, 32),
+                        feature_units=False)
+    assert [lv.row0 for lv in table] == [0, 19200, 24000]
+    assert [lv.anchors for lv in table] == [tuple(v for pair in a for v in pair) for a in anchors]
+
+
+def test_a_four_level_ibin_input_takes_tma():
+    maps = _ibin_maps([(160, 160), (80, 80), (40, 40), (20, 20)], bs=1)
+    assert form_for(maps) == "tma"
+
+
+@pytest.mark.parametrize("nc,form", [(80, "tma"), (125, "tma"), (126, "strided")])
+def test_ibin_form_for_at_the_edge_of_shared_memory(nc, form):
+    """K4 stages nc + 47 input columns and writes nc + 5: with 3 anchors its
+    block fits in 227 KB up to 125 classes."""
+    assert form_for(_ibin_maps([(8, 8), (4, 4)], no=nc + 3 + 2 * 22)) == form

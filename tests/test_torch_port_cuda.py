@@ -16,8 +16,10 @@ import torch
 from _torch_port import YOLOV7_640_FUSED_TAILS, ibin_logits, min_bin_gap, tiny_plan_cfg
 from yolo_continuous_tpu_torch.config.plan import TrainPlan
 from yolo_continuous_tpu_torch.detect_api import Detector
+from yolo_continuous_tpu_torch.kernels import bin_decode, decode
 from yolo_continuous_tpu_torch.kernels.bin_decode import decode_outputs_bin_cuda
 from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda
+from yolo_continuous_tpu_torch.kernels.decode import form_for as decode_form_for
 from yolo_continuous_tpu_torch.kernels.fused_conv import (form_for, fused_pointwise_conv_cuda,
                                                           fused_pointwise_conv_plain,
                                                           reciprocal_mismatches)
@@ -47,10 +49,11 @@ def test_decode_kernel_matches_plain(cuda, normalized):
     maps = [head_view(torch.randn(3, 3 * 9, n, n + 1, device=cuda, generator=g) * 3, 3, 9)
             for n in (3, 5, 9)]
     strides = (32, 16, 8)
+    assert decode_form_for(maps) == "strided"           # h * w = n (n + 1) is not a multiple of 4
     before = decode_outputs_cuda.launches
     got = decode_outputs_cuda(maps, ANCHORS, strides, normalized)
     torch.cuda.synchronize()
-    assert decode_outputs_cuda.launches == before + 3
+    assert decode_outputs_cuda.launches == before + 3   # one a level
     want = torch.cat([decode_level(m, torch.tensor(a), float(s), normalized)
                       for m, a, s in zip(maps, ANCHORS, strides)], 1)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -119,6 +122,7 @@ def test_bin_decode_kernel_matches_plain(cuda, normalized):
         maps.append(head_view(y.to(cuda), na, no))
     anchors = ANCHORS[::-1]
     strides = (8, 16, 32)
+    assert bin_decode.form_for(maps) == "strided"
     before = decode_outputs_bin_cuda.launches
     got = decode_outputs_bin_cuda(maps, anchors, strides, 21, normalized)
     torch.cuda.synchronize()
@@ -127,6 +131,164 @@ def test_bin_decode_kernel_matches_plain(cuda, normalized):
                       for m, a, s in zip(maps, anchors, strides)], 1)
     assert got.shape == want.shape == (3, 3 * (90 + 30 + 12), 9)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# the TMA form of K3 and K4: four levels in one launch, among them a 20 x 20
+# level (12.5 tiles of 32 pixels: a partial last tile) and a 2 x 2 one (one
+# tile of 4 pixels); P6's anchors for the fourth
+TMA_SIDES = (20, 2, 40, 80)
+TMA_STRIDES = (32, 64, 16, 8)
+TMA_ANCHORS = ANCHORS[:1] + (((436.0, 615.0), (739.0, 380.0), (925.0, 792.0)),) + ANCHORS[1:]
+EDGE_LOGITS = (-90.0, -200.0, 90.0, 1e30, -1e30, -87.5)   # e^-v overflows, or 1/d is subnormal
+
+
+def _edges(rs, p, cols):
+    """p with every 11th value of the given columns set to an edge logit (11 is
+    prime to the number of columns, so every column gets some)."""
+    p = p.copy()
+    sub = p[..., cols]
+    flat = sub.reshape(-1)
+    pick = np.arange(0, flat.size, 11)
+    flat[pick] = rs.choice(EDGE_LOGITS, pick.size)
+    p[..., cols] = flat.reshape(sub.shape)
+    return p
+
+
+def _nchw_views(arrays, device):
+    """(bs, h, w, na, no) arrays -> head views of contiguous NCHW tensors."""
+    views = []
+    for p in arrays:
+        bs, h, w, na, no = p.shape
+        y = torch.from_numpy(np.ascontiguousarray(p)).permute(0, 3, 4, 1, 2).reshape(bs, na * no, h, w)
+        views.append(head_view(y.contiguous().to(device), na, no))
+    return views
+
+
+def _decode_both_forms(maps, normalized, anchors=TMA_ANCHORS, strides=TMA_STRIDES):
+    """K3 on maps in the TMA form (one launch) and the strided form."""
+    assert decode_form_for(maps) == "tma"
+    before = decode_outputs_cuda.launches
+    got = decode_outputs_cuda(maps, anchors, strides, normalized)
+    torch.cuda.synchronize()
+    assert decode_outputs_cuda.launches == before + 1
+    strided = decode.launch_form(maps, anchors, strides, normalized, "strided")
+    want = torch.cat([decode_level(m, torch.tensor(a), float(s), normalized)
+                      for m, a, s in zip(maps, anchors, strides)], 1)
+    return got, strided, want
+
+
+@pytest.mark.parametrize("bs", [1, 3])
+@pytest.mark.parametrize("normalized", [True, False])
+def test_decode_tma_form_matches_plain_and_strided(cuda, bs, normalized):
+    rs = np.random.RandomState(bs)
+    maps = _nchw_views([(rs.randn(bs, n, n, 3, 9) * 3).astype(np.float32) for n in TMA_SIDES], cuda)
+    got, strided, want = _decode_both_forms(maps, normalized)
+    assert got.shape == want.shape == (bs, 3 * sum(n * n for n in TMA_SIDES), 9)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, strided)
+
+
+def test_decode_forms_at_the_edges_of_the_sigmoid(cuda):
+    """Logits where e^-v overflows (-90, -200, -1e30), where 1/(1 + e^-v) is
+    subnormal (-87.5) and where it saturates (90, 1e30), in every column:
+    both forms agree with the plain version, and with each other bit for bit."""
+    rs = np.random.RandomState(7)
+    maps = _nchw_views([_edges(rs, (rs.randn(2, n, n, 3, 9) * 3).astype(np.float32), slice(None))
+                        for n in TMA_SIDES], cuda)
+    for normalized in (True, False):
+        got, strided, want = _decode_both_forms(maps, normalized)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, strided)
+    assert (got[..., 4:] == 0).any() and (got[..., 4:] == 1).any()
+
+
+def test_decode_rejects_the_tma_form_for_maps_it_cannot_read(cuda):
+    maps = [head_view(torch.zeros(1, 27, 3, 5, device=cuda), 3, 9)]     # h * w = 15
+    before = decode_outputs_cuda.launches
+    with pytest.raises(ValueError, match="form"):
+        decode.launch_form(maps, ANCHORS[:1], (8,), True, "tma")
+    assert decode_outputs_cuda.launches == before
+
+
+def _bin_decode_both_forms(maps, normalized, anchors=TMA_ANCHORS, strides=TMA_STRIDES):
+    assert bin_decode.form_for(maps) == "tma"
+    before = decode_outputs_bin_cuda.launches
+    got = decode_outputs_bin_cuda(maps, anchors, strides, 21, normalized)
+    torch.cuda.synchronize()
+    assert decode_outputs_bin_cuda.launches == before + 1
+    strided = bin_decode.launch_form(maps, anchors, strides, 21, normalized, "strided")
+    want = torch.cat([decode_level_bin(m, torch.tensor(a), float(s), 21, normalized)
+                      for m, a, s in zip(maps, anchors, strides)], 1)
+    return got, strided, want
+
+
+@pytest.mark.parametrize("bs", [1, 3])
+@pytest.mark.parametrize("normalized", [True, False])
+def test_bin_decode_tma_form_matches_plain_and_strided(cuda, bs, normalized):
+    """Under the argmax-gap precondition."""
+    rs = np.random.RandomState(10 + bs)
+    arrays = [ibin_logits(rs, (bs, n, n, 3), 4) for n in TMA_SIDES]
+    assert min(min_bin_gap(p) for p in arrays) > 1e-5
+    got, strided, want = _bin_decode_both_forms(_nchw_views(arrays, cuda), normalized)
+    assert got.shape == want.shape == (bs, 3 * sum(n * n for n in TMA_SIDES), 9)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, strided)
+
+
+def test_bin_decode_forms_at_the_edges_of_the_sigmoid(cuda):
+    """Edge logits in x, y, obj and cls (the bins keep the argmax-gap
+    precondition): both forms agree with the plain version, and with each
+    other bit for bit."""
+    rs = np.random.RandomState(8)
+    cols = [0, 1] + list(range(2 + 2 * 22, 51))
+    arrays = [_edges(rs, ibin_logits(rs, (2, n, n, 3), 4), cols) for n in TMA_SIDES]
+    assert min(min_bin_gap(p) for p in arrays) > 1e-5
+    maps = _nchw_views(arrays, cuda)
+    for normalized in (True, False):
+        got, strided, want = _bin_decode_both_forms(maps, normalized)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, strided)
+    assert (got[..., 4:] == 0).any() and (got[..., 4:] == 1).any()
+
+
+@pytest.mark.parametrize("no,form", [(151, "tma"), (152, "strided")])
+def test_decode_forms_at_the_edge_of_shared_memory(cuda, no, form):
+    """With 3 anchors, 151 columns is the widest head whose TMA block fits in
+    227 KB: it takes the TMA form, bit-equal to the strided form; 152 takes
+    the strided form, one launch a level."""
+    rs = np.random.RandomState(no)
+    maps = _nchw_views([(rs.randn(2, n, n, 3, no) * 3).astype(np.float32) for n in (4, 8)], cuda)
+    anchors, strides = ANCHORS[:2], (32, 16)
+    assert decode_form_for(maps) == form
+    before = decode_outputs_cuda.launches
+    got = decode_outputs_cuda(maps, anchors, strides)
+    torch.cuda.synchronize()
+    assert decode_outputs_cuda.launches == before + (1 if form == "tma" else 2)
+    want = torch.cat([decode_level(m, torch.tensor(a), float(s))
+                      for m, a, s in zip(maps, anchors, strides)], 1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, decode.launch_form(maps, anchors, strides, True, "strided"))
+
+
+@pytest.mark.parametrize("nc,form", [(125, "tma"), (126, "strided")])
+def test_bin_decode_forms_at_the_edge_of_shared_memory(cuda, nc, form):
+    """K4 with 3 anchors: 125 classes is the most whose TMA block fits in
+    227 KB; 126 take the strided form."""
+    rs = np.random.RandomState(nc)
+    arrays = [ibin_logits(rs, (2, n, n, 3), nc) for n in (8, 4)]
+    assert min(min_bin_gap(p) for p in arrays) > 1e-5
+    maps = _nchw_views(arrays, cuda)
+    anchors, strides = ANCHORS[::-1][:2], (8, 16)
+    assert bin_decode.form_for(maps) == form
+    before = decode_outputs_bin_cuda.launches
+    got = decode_outputs_bin_cuda(maps, anchors, strides)
+    torch.cuda.synchronize()
+    assert decode_outputs_bin_cuda.launches == before + (1 if form == "tma" else 2)
+    want = torch.cat([decode_level_bin(m, torch.tensor(a), float(s), 21)
+                      for m, a, s in zip(maps, anchors, strides)], 1)
+    assert got.shape == (2, 3 * 80, 5 + nc)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, bin_decode.launch_form(maps, anchors, strides, 21, True, "strided"))
 
 
 # dtype, C_in, C_out, H, W: a main-path shape, a ragged one (vector loads),
@@ -155,13 +317,14 @@ def test_fused_conv_kernel_matches_plain(cuda, dtype, c, n, h, w):
 
 
 def test_detector_paths_launch_k4_and_k5(cuda):
-    """IBin decodes through K4 (3 levels); fused_tails runs yolov7's 24
-    eligible Convs through K5."""
+    """IBin decodes through K4 (its 64 px maps take the TMA form: one launch
+    for the 3 levels); fused_tails runs yolov7's 24 eligible Convs through
+    K5."""
     det = Detector(TrainPlan(tiny_plan_cfg("IBin", 64)), device="cuda", seed=0)
     n4 = decode_outputs_bin_cuda.launches
     boxes, _, _, _ = det(np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32), 0.01)
     torch.cuda.synchronize()
-    assert decode_outputs_bin_cuda.launches - n4 == 3 and torch.isfinite(boxes).all()
+    assert decode_outputs_bin_cuda.launches - n4 == 1 and torch.isfinite(boxes).all()
     plan = TrainPlan("cfg/chip_tiny.yaml")
     plan.model_cfg, plan.image_size = "cfg/net/yolov7.yaml", 64
     plan.save_path = "/nonexistent/x.msgpack"

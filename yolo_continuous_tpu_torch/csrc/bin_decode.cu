@@ -1,4 +1,4 @@
-// K4: fused IBin (SigmoidBin) decode of one head level, for Hopper (sm_90a).
+// K4: fused IBin (SigmoidBin) decode of the head levels, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel yolo_continuous_tpu/kernels/bin_decode_pallas.py
 // (decode_level_bin_pallas, body _make_kernel). Plain PyTorch version of the
@@ -20,17 +20,27 @@
 // 5 + nc (127 and 85 at 80 classes) with a few flops and two 21-way argmaxes;
 // at yolov7-IBin @640, bs 16 that is about 342 MB, about 0.10 ms at 3.35 TB/s.
 //
-// What the design does about it: as K3 (csrc/decode.cu). The input is the
-// port's (bs, h, w, na, no) view of the NCHW conv output, read through its
-// strides with no copy. One block takes a row of up to kTileX cells (16 at
-// 3 x 127 columns, to stay under 48 KB) and stages their sigmoids in shared
-// memory, read with w fastest (contiguous in NCHW). One thread per row and
-// value then scans the bins into a small w/h array, so the 21-step scans
-// do not stall the warps of the write; the write puts the tile's 5 + nc
-// columns per row out as one contiguous run, so both sides are coalesced
-// although input and output rows differ in width. Simple first form: no
-// vectorised loads, no TMA.
+// Two forms, chosen by the caller (kernels/bin_decode.py::form_for) before
+// the launch:
+//
+// decode_levels_bin_tma, the main form: every level of a request in one
+// launch, fed by TMA (decode_tma.cuh says how and when a head map
+// qualifies). The sigmoided bins stay in the staged input tile, per pixel
+// and anchor; then one thread per (pixel, anchor, w|h) scans the 21 bins
+// down its own pixel's column (lanes over pixels: no bank conflicts), and
+// only the 5 + nc output columns are written.
+//
+// decode_level_bin, the strided form, one launch per level, for any
+// strides: as K3's (csrc/decode.cu). One block takes a row of up to 32
+// cells (16 at 3 x 127 columns, to stay under 48 KB) and stages their
+// sigmoids in shared memory, read with w fastest (contiguous in NCHW). One
+// thread per row and value then scans the bins into a small w/h array, so
+// the 21-step scans do not stall the warps of the write; the write puts the
+// tile's 5 + nc columns per row out as one contiguous run, so both sides are
+// coalesced although input and output rows differ in width.
 #include <cuda_runtime.h>
+
+#include "decode_tma.cuh"
 
 namespace {
 
@@ -48,13 +58,15 @@ __device__ __forceinline__ float sigmoid(float v) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-v)));
 }
 
-// SigmoidBin decode of one value: residual at s[0], bins at s[1 .. nbin]
-__device__ __forceinline__ float bin_value(const float* s, int nbin, float start, float step) {
+// SigmoidBin decode of one value: residual at s[0], bins at s[ds .. nbin ds]
+__device__ __forceinline__ float bin_value(const float* s, int ds, int nbin, float start,
+                                           float step) {
   int best = 0;
-  float top = s[1];
+  float top = s[ds];
   for (int j = 1; j < nbin; ++j) {
-    if (s[1 + j] > top) {  // strict: the first maximum wins, as argmax
-      top = s[1 + j];
+    const float v = s[(1 + j) * ds];
+    if (v > top) {  // strict: the first maximum wins, as argmax
+      top = v;
       best = j;
     }
   }
@@ -95,7 +107,7 @@ __global__ void decode_level_bin_kernel(const float* __restrict__ pred, float* _
   for (int t = threadIdx.x; t < nx * na * 2; t += blockDim.x) {
     const int row = t >> 1;
     const float* s = tile + row * no + 2 + (t & 1) * L;
-    wh[t] = __fmul_rn(bin_value(s, nbin, start, step), (t & 1) ? anc.h[row % na] : anc.w[row % na]);
+    wh[t] = __fmul_rn(bin_value(s, 1, nbin, start, step), (t & 1) ? anc.h[row % na] : anc.w[row % na]);
   }
   __syncthreads();
 
@@ -123,6 +135,51 @@ __global__ void decode_level_bin_kernel(const float* __restrict__ pred, float* _
     dst[idx] = r;
   }
 }
+
+// The TMA form's arithmetic on a staged tile: lane p is pixel t.p0 + p, the
+// warps take the tile's (anchor, column) rows in turn: x and y are decoded,
+// obj and cls written, the bins sigmoided in place; then a thread per
+// (anchor, w|h) of its pixel scans them. Every step as in
+// decode_level_bin_kernel.
+struct BinDecode {
+  __device__ static void compute(const decode_tma::Levels& lv, const decode_tma::Level& L,
+                                 const decode_tma::Tile& t, float* in, float* ob, int p,
+                                 int warp) {
+    using decode_tma::kP;
+    const int pix = t.p0 + p;
+    const int y = pix / L.w;
+    const float gx = static_cast<float>(pix - y * L.w);
+    const float gy = static_cast<float>(y);
+    const float sw = static_cast<float>(L.w) * L.stride;  // normalisers, as the strided form's
+    const float sh = static_cast<float>(L.h) * L.stride;
+    const int no = lv.no, no_out = lv.no_out, na = L.na, len = lv.nbin + 1;
+    const int bins_end = 2 + 2 * len;   // x, y, then the w and h residuals and bins
+    for (int q = warp, a = 0, c = warp; q < na * no; q += decode_tma::kWarps, c += decode_tma::kWarps) {
+      while (c >= no) {   // q = a * no + c
+        c -= no;
+        ++a;
+      }
+      const float s = sigmoid_rn(in[q * kP + p]);
+      float* dst = ob + (p * na + a) * no_out;
+      if (c < 2) {
+        const float box =
+            __fmul_rn(__fadd_rn(__fsub_rn(__fmul_rn(s, 2.0f), 0.5f), c == 0 ? gx : gy), L.stride);
+        dst[c] = lv.normalized ? __fdiv_rn(box, c ? sh : sw) : box;
+      } else if (c < bins_end) {
+        in[q * kP + p] = s;
+      } else {
+        dst[c - bins_end + 4] = s;
+      }
+    }
+    __syncthreads();
+    for (int q = warp; q < 2 * na; q += decode_tma::kWarps) {
+      const int a = q >> 1, k = q & 1;
+      const float* s = in + (a * no + 2 + k * len) * kP + p;
+      const float wh = __fmul_rn(bin_value(s, kP, lv.nbin, lv.start, lv.step), k ? L.ah[a] : L.aw[a]);
+      ob[(p * na + a) * no_out + 2 + k] = lv.normalized ? __fdiv_rn(wh, k ? sh : sw) : wh;
+    }
+  }
+};
 
 }  // namespace
 
@@ -159,4 +216,19 @@ extern "C" int decode_level_bin(const void* pred, void* out, int bs, int h, int 
       static_cast<const float*>(pred), static_cast<float*>(out), h, w, na, no, nbin, tile_x, sb, sy,
       sx, sa, sc, out_bstride, row0, anc, normalized, stride, start, static_cast<float>(step));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The TMA form: all nl (<= 4) levels of pred in one launch. level_ints holds
+// per level the map's base pointer, h, w, na and its first output row;
+// level_floats per level the stride and 8 (w, h) anchor pairs in pixels (the
+// first na used). Each map is the (bs, h, w, na, no) view of a contiguous
+// (bs, na * no, h, w) fp32 tensor with h * w % 4 == 0 and a 16-byte aligned
+// base (cudaErrorInvalidValue otherwise).
+extern "C" int decode_levels_bin_tma(int nl, const long long* level_ints, const float* level_floats,
+                                     void* out, int bs, int no, long long out_bstride, int nbin,
+                                     int normalized, void* stream) {
+  if (nbin < 1 || no < 2 * (nbin + 1) + 3) return static_cast<int>(cudaErrorInvalidValue);
+  return decode_tma::launch<BinDecode>(nl, level_ints, level_floats, out, bs, no,
+                                       no - 2 * (nbin + 1) + 2, out_bstride, normalized, nbin,
+                                       stream);
 }

@@ -1,4 +1,4 @@
-// K3: fused grid/anchor decode of one head level, for Hopper (sm_90a).
+// K3: fused grid/anchor decode of the head levels, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel yolo_continuous_tpu/kernels/decode_pallas.py
 // (decode_level_pallas, body _make_kernel). Plain PyTorch version of the
@@ -20,15 +20,23 @@
 // once (4 + 4 bytes) with a few flops, far below the card's flop/byte
 // ratio; at yolov7 @640, bs 16 that is 2 x 137 MB, about 82 us at 3.35 TB/s.
 //
-// What the design does about it: the input is the port's (bs,h,w,na,no)
-// view of the NCHW conv output, read through the strides it is given, so
-// the permute costs no copy. One block takes a row of up to kTileX cells
-// (all anchors and columns) and transposes it through shared memory: it
-// reads with w fastest (contiguous in NCHW) and writes one contiguous run
-// of tile_x * na * no floats, so both sides are coalesced. Grid position
-// and anchor come from the block and element index, as on the TPU. Simple
-// first form: no vectorised loads, no TMA.
+// Two forms, chosen by the caller (kernels/decode.py::form_for) before the
+// launch:
+//
+// decode_levels_tma, the main form: every level of a request in one launch,
+// fed by TMA (decode_tma.cuh says how and when a head map qualifies).
+//
+// decode_level, the strided form, one launch per level, for any strides (a
+// channels-last map, h * w not a multiple of 4, a misaligned base): the
+// input is read through the strides it is given, so the permute costs no
+// copy. One block takes a row of up to 32 cells (all anchors and columns)
+// and transposes it through shared memory: it reads with w fastest
+// (contiguous in NCHW) and writes one contiguous run of tile_x * na * no
+// floats, so both sides are coalesced. Grid position and anchor come from
+// the block and element index, as on the TPU.
 #include <cuda_runtime.h>
+
+#include "decode_tma.cuh"
 
 namespace {
 
@@ -90,6 +98,42 @@ __global__ void decode_level_kernel(const float* __restrict__ pred, float* __res
   for (int idx = threadIdx.x; idx < n; idx += blockDim.x) dst[idx] = tile[idx];
 }
 
+// The TMA form's arithmetic on a staged tile: lane p is pixel t.p0 + p, the
+// warps take the tile's (anchor, column) rows in turn
+struct GridDecode {
+  __device__ static void compute(const decode_tma::Levels& lv, const decode_tma::Level& L,
+                                 const decode_tma::Tile& t, float* in, float* ob, int p,
+                                 int warp) {
+    using decode_tma::kP;
+    const int pix = t.p0 + p;
+    const int y = pix / L.w;
+    const float gx = static_cast<float>(pix - y * L.w);
+    const float gy = static_cast<float>(y);
+    const float fw = static_cast<float>(L.w);
+    const float fh = static_cast<float>(L.h);
+    const int no = lv.no, na = L.na;
+    for (int q = warp, a = 0, c = warp; q < na * no; q += decode_tma::kWarps, c += decode_tma::kWarps) {
+      while (c >= no) {   // q = a * no + c
+        c -= no;
+        ++a;
+      }
+      const float s = sigmoid_rn(in[q * kP + p]);
+      float r = s;
+      if (c < 4) {   // as decode_level_kernel, step for step
+        const float t2 = __fmul_rn(s, 2.0f);
+        float box;
+        if (c < 2) {
+          box = __fadd_rn(__fsub_rn(t2, 0.5f), c == 0 ? gx : gy);
+        } else {
+          box = __fmul_rn(__fmul_rn(t2, t2), c == 2 ? L.aw[a] : L.ah[a]);
+        }
+        r = lv.normalized ? __fdiv_rn(box, (c & 1) ? fh : fw) : __fmul_rn(box, L.stride);
+      }
+      ob[(p * na + a) * no + c] = r;
+    }
+  }
+};
+
 }  // namespace
 
 // pred: (bs, h, w, na, no) fp32, element strides sb, sy, sx, sa, sc.
@@ -117,4 +161,18 @@ extern "C" int decode_level(const void* pred, void* out, int bs, int h, int w, i
       static_cast<const float*>(pred), static_cast<float*>(out), h, w, na, no, tile_x, sb, sy, sx,
       sa, sc, out_bstride, row0, anc, normalized, stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The TMA form: all nl (<= 4) levels of pred in one launch. level_ints holds
+// per level the map's base pointer, h, w, na and its first output row;
+// level_floats per level the stride and 8 (w, h) anchor pairs in feature
+// units (the first na used). Each map is the (bs, h, w, na, no) view of a
+// contiguous (bs, na * no, h, w) fp32 tensor with h * w % 4 == 0 and a
+// 16-byte aligned base (cudaErrorInvalidValue otherwise).
+extern "C" int decode_levels_tma(int nl, const long long* level_ints, const float* level_floats,
+                                 void* out, int bs, int no, long long out_bstride, int normalized,
+                                 void* stream) {
+  if (no < 5) return static_cast<int>(cudaErrorInvalidValue);
+  return decode_tma::launch<GridDecode>(nl, level_ints, level_floats, out, bs, no, no,
+                                        out_bstride, normalized, 0, stream);
 }

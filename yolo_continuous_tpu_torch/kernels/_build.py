@@ -28,9 +28,9 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of one source, after it on the command line: K5 encodes TMA tensor
-# maps with cuTensorMapEncodeTiled, which libcuda provides
-SOURCE_FLAGS: Dict[str, tuple] = {"fused_conv": ("-lcuda",)}
+# flags of one source, after it on the command line: K3, K4 and K5 encode TMA
+# tensor maps with cuTensorMapEncodeTiled, which libcuda provides
+SOURCE_FLAGS: Dict[str, tuple] = {name: ("-lcuda",) for name in ("decode", "bin_decode", "fused_conv")}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points of each source: name -> argtypes (all return a cudaError_t as int)
@@ -38,6 +38,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "decode": {
         "decode_level": (_P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
                          ctypes.POINTER(_F), _I, _F, _P),
+        "decode_levels_tma": (_I, ctypes.POINTER(_L), ctypes.POINTER(_F), _P, _I, _I, _L, _I, _P),
     },
     "nms": {
         "nms_suppress": (_P, _P, _P, _P, _I, _I, _F, _P),
@@ -48,6 +49,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "bin_decode": {
         "decode_level_bin": (_P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
                              ctypes.POINTER(_F), _I, _I, _F, _P),
+        "decode_levels_bin_tma": (_I, ctypes.POINTER(_L), ctypes.POINTER(_F), _P, _I, _I, _L, _I,
+                                  _I, _P),
     },
     "fused_conv": {
         "fused_conv_bf16_wgmma": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
