@@ -12,7 +12,9 @@ failure exits non-zero before the result line.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the main paths: K3 decode on the three yolov7 @640 levels
    at batch 16, in its TMA form (one launch for all levels), held bit-equal
-   to its strided form and timed beside it; K1 NMS at K = 300 x 16 images; K2 NMS at K = 2048 and 4096
+   to its strided form and timed beside it; K1 NMS at K = 300 x 16 images,
+   also timed at 300 x 1 and 1024 x 16 beside an empty kernel launched as
+   K1 is (the launch floor); K2 NMS at K = 2048 and 4096
    (NMS inputs are 25200 random candidates per image cut to the top K, as
    the JAX bench builds them, plus a chained-overlap case; keep-sets must
    be identical); K4 IBin decode on the three yolov7-IBin @640 levels at
@@ -32,7 +34,9 @@ failure exits non-zero before the result line.
    IBin; (fused_tails) yolov7 with ``Detector(fused_tails=True)``. Launch
    counters are set to 0 just before each path and read just after; every
    kernel of the path must have launched (K3 or K4 once a request, in the
-   TMA form, and K5 24 times a request). Each path prints its stage times from CUDA events and a short
+   TMA form, and K5 24 times a request). Each path prints its stage times
+   from CUDA events (the NMS stage also split into ``top_candidates`` and
+   ``suppress`` device time) and a short
    profiler window; the default and fused-tail paths also the host's
    enqueue time. Then the three paths' forward and request times, measured
    in turns.
@@ -253,14 +257,20 @@ def phase_kernels(spec, bin_spec, k5_shapes):
     del maps, got, want, px_got
 
     rs = np.random.RandomState(0)
-    cases = {"nms_suppress": [(300, nms_inputs(rs, 300, BS)), (300, dense_inputs(rs, 300, BS)),
-                              (1024, dense_inputs(rs, 1024, 4)), (300, chain_inputs(300))],
+    rs1 = np.random.RandomState(1)          # K1's added cases; K2's inputs stay those of rs
+    k1_shapes = {"300x16": nms_inputs(rs, 300, BS), "300x1": nms_inputs(rs1, 300, 1),
+                 "1024x16": dense_inputs(rs1, 1024, BS)}
+    chains = {k: chain_inputs(k) for k in (300, 1024, 2048)}
+    cases = {"nms_suppress": [(300, k1_shapes["300x16"]), (300, dense_inputs(rs, 300, BS)),
+                              (1024, dense_inputs(rs, 1024, 4)), (300, chains[300]),
+                              (300, k1_shapes["300x1"]), (1024, k1_shapes["1024x16"]),
+                              (1024, chains[1024])],
              "nms_suppress_tiled": [(4096, nms_inputs(rs, 4096, BS)),
                                     (2048, nms_inputs(rs, 2048, BS)),
                                     (4096, dense_inputs(rs, 4096, 4)),
                                     (8192, nms_inputs(rs, 8192, 4)),
                                     (8192, dense_inputs(rs, 8192, 4)),
-                                    (2048, chain_inputs(2048))]}
+                                    (2048, chains[2048])]}
     for name, fn in (("nms_suppress", nms_suppress), ("nms_suppress_tiled", nms_suppress_tiled)):
         err = 0.0
         for k, args in cases[name]:
@@ -270,27 +280,58 @@ def phase_kernels(spec, bin_spec, k5_shapes):
             if not torch.equal(got, want):
                 fail(f"{name} K={k}: keep-set differs from the plain version in "
                      f"{int((got != want).sum())} places")
-            chain = args[0].shape[0] == 1
+            chain = args is chains.get(k)
             if chain and not torch.equal(got[0], torch.arange(k, device="cuda") % 2 == 0):
                 fail(f"{name} K={k}: greedy keeps exactly every other box of the chain")
             print(f"{name}: K={k} x {args[0].shape[0]} keep-set equal "
                   f"({int(got.sum())} kept of {int(args[2].sum())} valid)", flush=True)
         k, args = cases[name][0]
         b = args[0].shape[0]
-        ops = b * k * (k - 1) / 2 * IOU_OPS          # one IoU test per pair, as greedy needs
-        nbytes = b * k * (16 + 4 + 1 + 1)            # boxes, classes, valid in; keep out
         report[name] = dict(
             max_abs_err=err, ms=cuda_ms(lambda: fn(*args, IOU)),
             plain_ms=cuda_ms(lambda: suppress_plain(*args, IOU), iters=5, warmup=1),
-            bound_ms=max(ops / FP32_FLOP_S, nbytes / HBM_BYTES_S) * 1e3,
-            bound_by="operations" if ops / FP32_FLOP_S > nbytes / HBM_BYTES_S else "bytes",
-            library_ms=None)
+            **nms_bound(b, k), library_ms=None)
         print(f"{name}: timed at K={k} x {b} images", flush=True)
+    shapes = k1_timed_shapes(k1_shapes)
+    report["nms_suppress"].update(ms_300x1=shapes["300x1"]["ms"], ms_1024x16=shapes["1024x16"]["ms"],
+                                  launch_floor_ms=shapes["300x16"]["launch_floor_ms"],
+                                  host_us=shapes["300x16"]["host_us"])
     tiled_phases(*cases["nms_suppress_tiled"][0][1])
 
     report["decode_level_bin"] = check_bin_decode(g, bin_spec)
     report["fused_conv"] = check_fused_conv(g, k5_shapes)
     return report
+
+
+def nms_bound(b: int, k: int) -> dict:
+    """Bound of a K1/K2 call: one IoU test a pair, as greedy needs, against
+    the fp32 rate; boxes, classes and valid read, keep written."""
+    ops = b * k * (k - 1) / 2 * IOU_OPS
+    nbytes = b * k * (16 + 4 + 1 + 1)
+    return dict(bound_ms=max(ops / FP32_FLOP_S, nbytes / HBM_BYTES_S) * 1e3,
+                bound_by="operations" if ops / FP32_FLOP_S > nbytes / HBM_BYTES_S else "bytes")
+
+
+def k1_timed_shapes(shapes: dict) -> dict:
+    """K1 at each (label: inputs): device ms; the launch floor, an empty
+    kernel launched as K1 is (grid, cluster, block, shared memory) through
+    the same ``cuda_ms``; host us a call; the cluster size ``cluster_size``
+    picks, and the time at every cluster size; the bound."""
+    import torch
+    from yolo_continuous_tpu_torch.kernels.nms import _launch, cluster_size, nms_suppress
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, args in shapes.items():
+        b, k = args[0].shape[:2]
+        c = cluster_size(b, k, sms)
+        out[label] = dict(
+            cluster=c, ms=cuda_ms(lambda: nms_suppress(*args, IOU)),
+            launch_floor_ms=cuda_ms(lambda: _launch("nms_launch_floor", *args, IOU, cluster=c)),
+            host_us=host_us(lambda: nms_suppress(*args, IOU)), **nms_bound(b, k),
+            ms_by_cluster={n: cuda_ms(lambda: _launch("nms_suppress", *args, IOU, cluster=n))
+                           for n in (1, 2, 4, 8)})
+    print(json.dumps({"nms_suppress_shapes": out}), flush=True)
+    return out
 
 
 def tiled_phases(boxes, classes, valid) -> None:
@@ -626,14 +667,18 @@ def drive_path(label, det, images, max_dets):
 def stage_times(det, images, decode):
     """Stage times of one request at max_det 300, CUDA events."""
     import torch
-    from yolo_continuous_tpu_torch.ops.nms import batched_nms
+    from yolo_continuous_tpu_torch.ops.nms import batched_nms, suppress, top_candidates
     with torch.inference_mode():
         maps = det.forward(images)
         pred = decode(maps)
+        boxes, _, classes, valid = top_candidates(pred, CONF, 300)
         stages = dict(
             forward_ms=cuda_ms(lambda: det.forward(images), iters=10, hold=False),
             decode_ms=cuda_ms(lambda: decode(maps), hold=False),
             nms_ms=cuda_ms(lambda: batched_nms(pred, CONF, IOU, 300), hold=False),
+            # the NMS stage's two parts, device time
+            nms_top_candidates_ms=cuda_ms(lambda: top_candidates(pred, CONF, 300)),
+            nms_suppress_ms=cuda_ms(lambda: suppress(boxes, classes, valid, IOU)),
             total_ms=cuda_ms(lambda: det(images, CONF, IOU, 300), iters=10, hold=False))
     stages["img_s"] = BS / stages["total_ms"] * 1e3
     return stages
@@ -808,8 +853,10 @@ def main() -> None:
     kernels = []
     for name, (src, replaces, counter) in meta.items():
         r = report[name]
-        # the form timed beside the main one: K3's and K4's strided form, K5's mma.sync form
-        other = {k: r[k] for k in ("strided_ms", "mma_sync_ms") if k in r}
+        # the form timed beside the main one: K3's and K4's strided form, K5's mma.sync form;
+        # K1's times at 300 x 1 and 1024 x 16, its launch floor and host time
+        other = {k: r[k] for k in ("strided_ms", "mma_sync_ms", "ms_300x1", "ms_1024x16",
+                                   "launch_floor_ms", "host_us") if k in r}
         kernels.append(dict(name=name, route="cuda", source=f"yolo_continuous_tpu_torch/{src}",
                             replaces=replaces, launches=launches[counter],
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

@@ -23,6 +23,7 @@ from yolo_continuous_tpu_torch.kernels.decode import form_for as decode_form_for
 from yolo_continuous_tpu_torch.kernels.fused_conv import (form_for, fused_pointwise_conv_cuda,
                                                           fused_pointwise_conv_plain,
                                                           reciprocal_mismatches)
+from yolo_continuous_tpu_torch.kernels import nms as nms_k1k2
 from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
 from yolo_continuous_tpu_torch.nn.heads import head_view
 from yolo_continuous_tpu_torch.ops.decode import decode_level, decode_level_bin
@@ -68,15 +69,75 @@ def _boxes(rs, b, k, nc):
             torch.from_numpy(rs.rand(b, k) > 0.1).cuda())
 
 
-@pytest.mark.parametrize("kernel,k", [(nms_suppress, 300), (nms_suppress, 1024),
-                                      (nms_suppress_tiled, 1500), (nms_suppress_tiled, 4096)])
-def test_nms_kernels_match_plain(cuda, kernel, k):
-    args = _boxes(np.random.RandomState(k), 3, k, 3)
-    got = kernel(*args, 0.45)
+def _nms_inputs(kind, b, k):
+    """Random boxes of 3 classes, about 10% not valid; or the same boxes all
+    of class 0 ("agnostic", as ``per_class=False`` sends them), none valid
+    ("invalid"), a third of zero width and a third of zero size
+    ("zero_area"); or one class in a chain where each box overlaps the next
+    at IoU 7/13 and greedy keeps every other box ("chain")."""
+    boxes, classes, valid = _boxes(np.random.RandomState(k), b, k, 3)
+    if kind == "agnostic":
+        classes = torch.zeros_like(classes)
+    elif kind == "invalid":
+        valid = torch.zeros_like(valid)
+    elif kind == "zero_area":
+        boxes[:, ::3, 2] = boxes[:, ::3, 0]
+        boxes[:, 1::3, 2:] = boxes[:, 1::3, :2]
+    elif kind == "chain":
+        x = torch.arange(k, dtype=torch.float32, device=boxes.device) * 3.0
+        boxes = torch.stack([x, torch.zeros_like(x), x + 10.0, torch.full_like(x, 10.0)], -1)
+        boxes = boxes.expand(b, k, 4).contiguous()
+        classes, valid = torch.zeros_like(classes), torch.ones_like(valid)
+    return boxes, classes, valid
+
+
+# the kernel, K, batch, inputs, IoU threshold: K1 around its 32-row chunks
+# and up to K1_MAX, at batch 1, 16 and 40 (40 clusters of 8 CTAs are more
+# than one wave on 132 SMs); thresholds 0 and -1 divide for every pair
+NMS_CASES = [(nms_suppress, 300, 3, "random", 0.45), (nms_suppress, 1024, 3, "random", 0.45),
+             (nms_suppress_tiled, 1500, 3, "random", 0.45),
+             (nms_suppress_tiled, 4096, 3, "random", 0.45)]
+NMS_CASES += [(nms_suppress, k, b, "random", 0.45) for k in (1, 31, 32, 33, 300, 1023, 1024)
+              for b in (1, 16, 40)]
+NMS_CASES += [(nms_suppress, k, b, kind, thr) for k, b, kind, thr in (
+    (300, 16, "agnostic", 0.45), (1024, 16, "agnostic", 0.45), (300, 1, "chain", 0.45),
+    (1024, 1, "chain", 0.45), (300, 4, "invalid", 0.45), (1024, 2, "invalid", 0.45),
+    (300, 4, "zero_area", 0.45), (300, 4, "zero_area", -1.0), (1024, 2, "zero_area", 0.0),
+    (300, 16, "random", 0.0), (300, 16, "random", -1.0), (1024, 3, "random", 0.0),
+    (1024, 3, "random", -1.0))]
+
+
+@pytest.mark.parametrize("kernel,k,b,kind,thr", NMS_CASES)
+def test_nms_kernels_match_plain(cuda, kernel, k, b, kind, thr):
+    args = _nms_inputs(kind, b, k)
+    before = kernel.launches
+    got = kernel(*args, thr)
     torch.cuda.synchronize()
-    want = suppress_plain(*args, 0.45)
-    assert torch.equal(got, want)
-    assert 0 < int(got.sum()) < int(args[2].sum())
+    assert kernel.launches == before + 1
+    assert torch.equal(got, suppress_plain(*args, thr))
+    if kind == "chain":
+        assert torch.equal(got, (torch.arange(k, device=cuda) % 2 == 0).expand(b, k))
+    elif kind == "invalid":
+        assert not got.any()
+    elif k >= 300:
+        assert 0 < int(got.sum()) < int(args[2].sum())       # suppression did real work
+
+
+@pytest.mark.parametrize("k", [300, 1024])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_nms_suppress_every_cluster_size_matches_plain(cuda, k, cluster):
+    """K1 at batch 40 in each cluster size, forced past ``cluster_size``
+    (which gives 40 images 2 CTAs each on 132 SMs)."""
+    args = _nms_inputs("random", 40, k)
+    got = nms_k1k2._launch("nms_suppress", *args, 0.45, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(got, suppress_plain(*args, 0.45))
+
+
+@pytest.mark.parametrize("cluster", [0, 9, 16])
+def test_nms_suppress_raises_for_a_cluster_it_cannot_launch(cuda, cluster):
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        nms_k1k2._launch("nms_suppress", *_nms_inputs("random", 2, 300), 0.45, cluster=cluster)
 
 
 @pytest.mark.parametrize("k,bs,nc", [(8192, 2, 3), (8192, 2, 80), (1025, 3, 3)])

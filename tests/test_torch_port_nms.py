@@ -1,9 +1,13 @@
 """PyTorch port NMS (plain version of kernels K1/K2) vs the JAX package.
 
-Keep-sets must be exactly equal to the JAX sequential greedy oracle, the
-Pallas K1 kernel and the Pallas K2 kernel (both in interpret mode), at
-K = 300 (K1's range) and K = 1500 (K2's range).
+Keep-sets must be exactly equal to the JAX sequential greedy oracle, its
+fixpoint form, the Pallas K1 kernel and the Pallas K2 kernel (both in
+interpret mode), at K = 31, 32, 33 (around one 32-row chunk of K1), 300
+and 1024 (K1's range) and K = 1500 (K2's range).
 """
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -14,8 +18,9 @@ from _torch_port import min_score_gap
 from yolo_continuous_tpu.kernels.nms_pallas import pallas_suppress, pallas_suppress_tiled
 from yolo_continuous_tpu.ops import nms as jax_nms
 from yolo_continuous_tpu.ops.boxes import box_iou as jax_box_iou
-from yolo_continuous_tpu_torch.kernels.nms import (K2_MAX, mask_words, nms_suppress,
-                                                    nms_suppress_tiled, tiled_scratch)
+from yolo_continuous_tpu_torch.kernels import nms as k1k2
+from yolo_continuous_tpu_torch.kernels.nms import (K2_MAX, cluster_size, k1_smem_bytes, mask_words,
+                                                    nms_suppress, nms_suppress_tiled, tiled_scratch)
 from yolo_continuous_tpu_torch.ops import nms
 from yolo_continuous_tpu_torch.ops.boxes import box_iou
 
@@ -49,16 +54,19 @@ def _port_keep_sets(boxes, classes, valid, thr):
 def _jax_keep_sets(boxes, classes, valid, thr):
     b, c, v = jnp.asarray(boxes), jnp.asarray(classes), jnp.asarray(valid)
     same = c[:, None] == c[None, :]
-    return {"jax_greedy": jax_nms._greedy_suppress(jax_box_iou(b, b), same, v, thr),
+    iou = jax_box_iou(b, b)
+    return {"jax_greedy": jax_nms._greedy_suppress(iou, same, v, thr),
+            "jax_fixpoint": jax_nms._fixpoint_suppress(iou, same, v, thr),
             "pallas_k1": pallas_suppress(b, c, v, thr, interpret=True),
             "pallas_k2": pallas_suppress_tiled(b, c, v, thr, interpret=True)}
 
 
 @pytest.mark.parametrize("case", ["random", "chain"])
-@pytest.mark.parametrize("k", [300, 1500])
+@pytest.mark.parametrize("k", [31, 32, 33, 300, 1024, 1500])
 def test_keep_sets_equal_jax_and_pallas(k, case):
     boxes, classes, valid = _case(k, k) if case == "random" else _chain(k)
-    thr = 0.5 if case == "random" else 0.3
+    # a few random boxes seldom overlap by half: 0.3 there, as in the chain
+    thr = 0.5 if case == "random" and k >= 300 else 0.3
     ref = {n: np.asarray(v) for n, v in _jax_keep_sets(boxes, classes, valid, thr).items()}
     want = ref["jax_greedy"]
     assert 0 < want.sum() < k                            # suppression did real work
@@ -153,3 +161,31 @@ def test_k2_scratch_is_one_mask_row_per_candidate():
     scratch = tiled_scratch(boxes)
     assert scratch.shape == (3, 1500, 48) and scratch.dtype == torch.int32
     assert tiled_scratch(torch.zeros(16, 4096, 4)).numel() * 4 == 32 << 20    # 32 MB
+
+
+def test_k1_constants_are_the_kernels():
+    """K1_MAX, K1_MAX_CLUSTER, K1_KEEP_WORDS, K1_TILE_STRIDE and
+    SMEM_PER_BLOCK copy kK1MaxK, kMaxCluster, kKeepWords, kTileStride and
+    kSmemPerBlock of csrc/nms.cu; k1_smem_bytes copies its k1_smem_bytes,
+    which fits a CTA at K1_MAX."""
+    src = (pathlib.Path(k1k2.__file__).parent.parent / "csrc" / "nms.cu").read_text()
+
+    def const(name):
+        return eval(re.search(rf"constexpr \w+ {name} = ([^;]+);", src).group(1))
+
+    names = ("kK1MaxK", "kMaxCluster", "kKeepWords", "kTileStride", "kSmemPerBlock")
+    assert tuple(const(n) for n in names) == (k1k2.K1_MAX, k1k2.K1_MAX_CLUSTER, k1k2.K1_KEEP_WORDS,
+                                              k1k2.K1_TILE_STRIDE, k1k2.SMEM_PER_BLOCK)
+    assert ("return static_cast<size_t>(k) * (16 + 4 + 4) + 4 * kKeepWords +\n"
+            "         4 * kTileStride * static_cast<size_t>((k + 31) / 32) * ((k + 31) / 32);" in src)
+    assert k1_smem_bytes(1024) == 1024 * 24 + 144 + 144 * 32 * 32 == 172176 <= k1k2.SMEM_PER_BLOCK
+    assert k1_smem_bytes(300) == 300 * 24 + 144 + 144 * 10 * 10 == 21744
+
+
+def test_cluster_size_halves_to_fit_the_sms_and_the_tiles():
+    """8 CTAs an image while the batch's clusters fit on the SMs (132 on an
+    H100 SXM, 114 on a PCIe card) and every CTA has a 32 x 32 tile of the
+    upper triangle (ceil(K/32) (ceil(K/32) + 1) / 2 of them)."""
+    assert [cluster_size(b, 300, 132) for b in (1, 16, 17, 33, 34, 66, 67)] == [8, 8, 4, 4, 2, 2, 1]
+    assert cluster_size(16, 300, 114) == 4
+    assert [cluster_size(1, k, 132) for k in (1, 32, 33, 64, 65, 96, 97, 1024)] == [1, 1, 2, 2, 4, 4, 8, 8]

@@ -28,13 +28,33 @@
 // us) and the sequential greedy sweep are what a launch costs. At K = 4096
 // x 16 images the IoU tests (13 fp32 operations a pair) bound K2 at 26 us.
 //
-// K1: one CTA per image replaces the TPU's vmap. It builds the suppression
-// relation as a bitmask in shared memory, K rows of ceil(K/32) words (12 KB
-// at K = 300, 128 KB at K = 1024 through dynamic shared memory), in parallel
-// over all threads. Then one warp runs the K-step greedy sweep with the
-// keep-mask in registers: lane l holds keep word l (K <= 1024 means at most
-// 32 words), the owner of bit i broadcasts it with a shuffle, and every lane
-// clears the bits that row i suppresses.
+// K1: one thread-block cluster per image replaces the TPU's vmap; one
+// launch (cudaLaunchKernelEx with a cluster dimension) for the batch.
+//   1. Mask, across the cluster's CTAs (8; fewer when the batch's CTAs
+//      would outnumber the SMs or a CTA would get no tile of the mask:
+//      kernels/nms.py::cluster_size). Every CTA stages all K boxes, areas
+//      and classes in its own shared memory. The upper triangle of the
+//      relation comes in tiles of 32 rows x 32 columns (one mask word a
+//      row), each tile 4 items of 8 rows, dealt to the cluster's warps in
+//      turn. A warp builds an item with lane = column: a ballot a row, the
+//      row's box a broadcast read ahead of the tests; no division per
+//      element, and only the IoU division branches.
+//      Once a first cluster barrier shows every CTA started, the rows'
+//      words go straight into the leader CTA's shared memory (distributed
+//      shared memory), a padded tile for every pair of row and column
+//      words: 144 KB at K = 1024. A second barrier (arrive.release,
+//      wait.acquire) follows; the other CTAs exit after it.
+//   2. Sweep, in the leader, from its own shared memory: the rows 32 at a
+//      time (a chunk, the rows of keep word c), as K2's sweep, by one warp
+//      with the keep words in registers (lane l word l; K <= 1024 means at
+//      most 32). The chunk's decisions are a fixpoint: the kept rows'
+//      diagonal words ORed across the lanes (redux.sync), as many rounds as
+//      the longest chain of suppression inside the chunk, plus one. Then
+//      lane l clears, in its own word, what the kept rows suppress: their
+//      32 words of column word l, read as 8 16-byte loads issued before the
+//      chunk's keep word arrives. No barrier in the loop.
+// valid comes in and keep goes out as 16-byte accesses over the aligned
+// middle of each image's bytes, single bytes at the ends.
 //
 // K2 keeps the same relation in device memory instead, where the TPU kernel
 // recomputed IoUs in every sweep of a fixpoint because VMEM cannot hold it:
@@ -59,14 +79,34 @@
 //      in shared memory, only the words the sweep will read.
 // The two phases are two launches of one call; the greedy keep-set is
 // exact, the same as K1's and the plain version's.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaskThreads = 512;
 constexpr size_t kStaticSmem = 48 * 1024;
+// K1 (kernels/nms.py copies these, a CPU test reads them here)
+constexpr int kK1MaxK = 1024;
+constexpr int kK1Threads = 512;              // 16 warps a CTA
+constexpr int kMaxCluster = 8;               // CTAs an image: the portable cluster size
+constexpr int kKeepWords = 36;               // 32 keep words, one zero word past them, 16-byte rows
+constexpr int kParts = 4;                    // a 32 x 32 tile of the mask is 4 items of 8 rows
+constexpr int kTileStride = 36;              // a tile's 32 row words, padded: the sweep's 16-byte
+                                             // reads of a quarter warp then hit all 32 banks
+constexpr size_t kSmemPerBlock = 227 * 1024;
+
+// shared memory of a K1 CTA: boxes, areas and classes; the keep words; the
+// leader's mask, a tile for every pair of row and column words (every CTA
+// of a launch has the same size)
+__host__ __device__ constexpr size_t k1_smem_bytes(int k) {
+  return static_cast<size_t>(k) * (16 + 4 + 4) + 4 * kKeepWords +
+         4 * kTileStride * static_cast<size_t>((k + 31) / 32) * ((k + 31) / 32);
+}
+static_assert(k1_smem_bytes(kK1MaxK) <= kSmemPerBlock, "K1's mask must fit in shared memory");
 
 __device__ __forceinline__ float box_area(float4 b) {
   return __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
@@ -78,79 +118,240 @@ __device__ __forceinline__ float intersection(float4 bi, float4 bj) {
   return __fmul_rn(wx, wy);
 }
 
-// IoU(i, j) > thr, the plain box_iou formula (see the note above)
-__device__ __forceinline__ bool overlaps(float4 bi, float ai, float4 bj, float aj, float thr) {
-  const float inter = intersection(bi, bj);
-  const float iou = __fdiv_rn(inter, __fsub_rn(__fadd_rn(ai, aj), inter));
-  return iou > thr;
+// IoU(i, j) > thr from their intersection, the plain box_iou formula (see
+// the note above). With thr >= 0 only boxes that meet can suppress: an
+// intersection of 0 gives an IoU of 0, or NaN for two empty boxes, neither
+// above thr; so the division, the costly step, runs only for those unless
+// divide_all (thr < 0 or NaN).
+__device__ __forceinline__ bool iou_above(float inter, float ai, float aj, float thr,
+                                          bool divide_all) {
+  return (inter > 0.0f || divide_all) &&
+         __fdiv_rn(inter, __fsub_rn(__fadd_rn(ai, aj), inter)) > thr;
 }
 
-__device__ void load_image(const float4* boxes, const int* classes, int k, float4* sbox,
-                           float* sarea, int* scls) {
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    const float4 b = boxes[i];
-    sbox[i] = b;
-    sarea[i] = box_area(b);
-    scls[i] = classes[i];
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// An image's k bytes (valid or keep) at p: the 16-byte aligned middle
+// [head, tail) and, byte by byte, the ends [0, head) and [tail, k).
+struct ByteSpan {
+  int head, tail, k;
+  __device__ ByteSpan(const void* p, int k_)
+      : head(min(k_, static_cast<int>((16u - (reinterpret_cast<uintptr_t>(p) & 15u)) & 15u))),
+        tail(head + (k_ - head) / 16 * 16), k(k_) {}
+  __device__ int vectors() const { return (tail - head) / 16; }
+  __device__ int ends() const { return head + k - tail; }
+  __device__ int end(int e) const { return e < head ? e : tail + e - head; }   // e < ends()
+};
+
+// 4 bytes -> 4 bits, bit q set where byte q is not 0
+__device__ __forceinline__ uint32_t byte_bits(uint32_t x) {
+  return ((__vcmpne4(x, 0u) & 0x08040201u) * 0x01010101u) >> 24;
+}
+
+// 4 bits -> 4 bytes of 0 or 1
+__device__ __forceinline__ uint32_t bit_bytes(uint32_t n) {
+  return ((n & 15u) * 0x00204081u) & 0x01010101u;
+}
+
+// valid's bytes for the keep words, loaded while the boxes load: a vector
+// of the aligned middle, or one byte of the ends, a thread
+struct ValidBytes {
+  uint4 q = {0u, 0u, 0u, 0u};   // 16 bytes, or one in q.x
+  int at = -1;                  // the candidate of the first, or -1
+  bool vector = false;
+
+  ValidBytes() = default;
+  __device__ ValidBytes(const uint8_t* valid, int k) {
+    const ByteSpan span(valid, k);
+    const int t = threadIdx.x;
+    if (t < span.vectors()) {
+      at = span.head + 16 * t;
+      vector = true;
+      q = *reinterpret_cast<const uint4*>(valid + at);
+    } else if (t - span.vectors() < span.ends()) {
+      at = span.end(t - span.vectors());
+      q.x = valid[at];
+    }
+  }
+
+  // into the keep words (zeroed, and a barrier since)
+  __device__ void store(uint32_t* keepw) const {
+    if (at < 0) return;
+    const uint32_t bits = vector ? byte_bits(q.x) | byte_bits(q.y) << 4 | byte_bits(q.z) << 8 |
+                                       byte_bits(q.w) << 12
+                                 : static_cast<uint32_t>(q.x != 0u);
+    if (bits == 0) return;
+    const int s = at & 31;
+    atomicOr(&keepw[at >> 5], bits << s);
+    if (s > 16) atomicOr(&keepw[(at >> 5) + 1], bits >> (32 - s));
+  }
+};
+
+// keep from the keep words, by all threads of the leader
+__device__ void store_keep(uint8_t* keep, int k, const uint32_t* keepw) {
+  const ByteSpan span(keep, k);
+  for (int v = threadIdx.x; v < span.vectors(); v += kK1Threads) {
+    const int i = span.head + 16 * v;
+    const uint32_t bits = __funnelshift_r(keepw[i >> 5], keepw[(i >> 5) + 1], i & 31);
+    *reinterpret_cast<uint4*>(keep + i) =
+        make_uint4(bit_bytes(bits), bit_bytes(bits >> 4), bit_bytes(bits >> 8), bit_bytes(bits >> 12));
+  }
+  if (static_cast<int>(threadIdx.x) < span.ends()) {
+    const int i = span.end(threadIdx.x);
+    keep[i] = (keepw[i >> 5] >> (i & 31)) & 1u;
   }
 }
 
-__global__ void nms_suppress_kernel(const float4* __restrict__ boxes,
-                                    const int* __restrict__ classes,
-                                    const uint8_t* __restrict__ valid,
-                                    uint8_t* __restrict__ keep, int k, float thr) {
+// One warp, one item: rows 32 rb + 8 part .. + 7 of the tile (rb, w), lane
+// = column 32 w + lane, a ballot a row; the rows' words go into the
+// leader's tile. The row's box, area and class are read (the same address
+// in every lane) before the tests, so that only the division branches.
+__device__ __forceinline__ void mask_item(const float4* sbox, const float* sarea, const int* scls,
+                                          uint32_t* lmask, int k, int words, int rb, int w,
+                                          int part, float thr, bool divide_all) {
+  constexpr int kRows = 32 / kParts;
+  const int lane = threadIdx.x & 31;
+  const int r0 = kRows * part, i0 = 32 * rb + r0;
+  const int j = 32 * w + lane;
+  const bool col = j < k;
+  const float4 bj = col ? sbox[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float aj = col ? sarea[j] : 0.0f;
+  const int cj = col ? scls[j] : 0;
+  const int rows = min(kRows, k - i0);
+  uint32_t mine = 0;   // the word of row 32 rb + lane, for lanes r0 .. r0 + rows - 1
+#pragma unroll 4
+  for (int r = 0; r < rows; ++r) {
+    const int i = i0 + r;
+    const float4 bi = sbox[i];
+    const float ai = sarea[i];
+    const bool pair = col & (j > i) & (scls[i] == cj);
+    const float inter = intersection(bi, bj);
+    const bool hit = pair && iou_above(inter, ai, aj, thr, divide_all);
+    const uint32_t bits = __ballot_sync(kFull, hit);
+    if (lane == r0 + r) mine = bits;
+  }
+  if (lane >= r0 && lane - r0 < rows) lmask[(rb * words + w) * kTileStride + lane] = mine;
+}
+
+// One warp of the leader: the greedy sweep over the chunks of 32 rows. Lane
+// l holds keep word l (kw, seeded from valid); rows that are not kept
+// suppress nothing. The loads do not depend on the decisions, so they go
+// out before the chunk's keep word arrives.
+__device__ __forceinline__ void sweep(const uint32_t* mask, uint32_t* keepw, int words) {
+  const int lane = threadIdx.x & 31;
+  uint32_t kw = keepw[lane];
+  for (int c = 0; c < words; ++c) {
+    const uint32_t* tiles = mask + c * words * kTileStride;   // tile (c, w) at kTileStride w
+    const uint32_t diag = tiles[c * kTileStride + lane];     // row 32 c + lane's diagonal word
+    const bool right = lane > c && lane < words;            // lane's word is right of the diagonal
+    const uint4* rows = reinterpret_cast<const uint4*>(tiles + (right ? lane : c) * kTileStride);
+    uint4 rw[8];   // the chunk's 32 row words of column word `lane`
+#pragma unroll
+    for (int q = 0; q < 8; ++q) rw[q] = rows[q];
+    const uint32_t word = __shfl_sync(kFull, kw, c);
+    if (word == 0) continue;   // no row of the chunk is kept
+    // the chunk's decisions as a fixpoint, the kept rows' diagonal words
+    // ORed across the lanes: rounds as many as the longest chain of
+    // suppression inside the chunk, plus one; it is the greedy keep-set
+    uint32_t kept = word;
+    for (;;) {
+      const uint32_t next = word & ~__reduce_or_sync(kFull, (kept >> lane) & 1u ? diag : 0u);
+      if (next == kept) break;
+      kept = next;
+    }
+    if (right) {
+      uint32_t hit[4] = {0u, 0u, 0u, 0u};   // four sums: a shallower chain
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (kept & (1u << (4 * q))) hit[0] |= rw[q].x;
+        if (kept & (1u << (4 * q + 1))) hit[1] |= rw[q].y;
+        if (kept & (1u << (4 * q + 2))) hit[2] |= rw[q].z;
+        if (kept & (1u << (4 * q + 3))) hit[3] |= rw[q].w;
+      }
+      kw &= ~(hit[0] | hit[1] | hit[2] | hit[3]);
+    } else if (lane == c) {
+      kw = kept;
+    }
+  }
+  keepw[lane] = kw;
+}
+
+__global__ void __launch_bounds__(kK1Threads)
+nms_suppress_kernel(const float4* __restrict__ boxes, const int* __restrict__ classes,
+                    const uint8_t* __restrict__ valid, uint8_t* __restrict__ keep, int k,
+                    int cluster_size, float thr) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int words = (k + 31) / 32;
-  float4* sbox = reinterpret_cast<float4*>(smem);
+  // the leader's mask, tiles [words][words][kTileStride] (row words of row
+  // block, column word), a 16-byte multiple; then every CTA's
+  uint32_t* mask = reinterpret_cast<uint32_t*>(smem);
+  float4* sbox = reinterpret_cast<float4*>(mask + words * words * kTileStride);
   float* sarea = reinterpret_cast<float*>(sbox + k);
   int* scls = reinterpret_cast<int*>(sarea + k);
-  uint32_t* mask = reinterpret_cast<uint32_t*>(scls + k);  // [k][words]
+  uint32_t* keepw = reinterpret_cast<uint32_t*>(scls + k);
 
-  const long long img = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const long long img = blockIdx.x / cluster_size;
   boxes += img * k;
   classes += img * k;
   valid += img * k;
   keep += img * k;
 
-  load_image(boxes, classes, k, sbox, sarea, scls);
+  // the leader's shared memory may be written once every CTA of the
+  // cluster has started: arrive now, wait before the first remote store
+  cluster_arrive_relaxed();
+  const ValidBytes vbytes = rank == 0 ? ValidBytes(valid, k) : ValidBytes();
+  for (int i = threadIdx.x; i < k; i += kK1Threads) {
+    const float4 b = boxes[i];
+    sbox[i] = b;
+    sarea[i] = box_area(b);
+    scls[i] = classes[i];
+  }
+  if (rank == 0 && threadIdx.x < kKeepWords) keepw[threadIdx.x] = 0;
   __syncthreads();
+  if (rank == 0) vbytes.store(keepw);
+  cluster_wait_acquire();
 
-  // mask[i][w] bit t: row i suppresses column j = 32 w + t (j > i, same class)
-  for (int idx = threadIdx.x; idx < k * words; idx += blockDim.x) {
-    const int i = idx / words;
-    const int j0 = (idx % words) * 32;
-    const float4 bi = sbox[i];
-    const float ai = sarea[i];
-    const int ci = scls[i];
-    uint32_t bits = 0;
-    for (int t = 0; t < 32; ++t) {
-      const int j = j0 + t;
-      if (j > i && j < k && scls[j] == ci && overlaps(bi, ai, sbox[j], sarea[j], thr)) {
-        bits |= 1u << t;
-      }
+  // items (tile, part): tiles (rb, w), rb <= w < words, row block by row
+  // block, kParts items each, dealt to the cluster's warps in turn
+  // (warp-major, so the CTAs share every row block)
+  uint32_t* lmask = cluster.map_shared_rank(mask, 0);
+  const bool divide_all = !(thr >= 0.0f);
+  const int step = cluster_size * (kK1Threads / 32);
+  int rb = 0, first = 0;   // first: the index of row block rb's first tile
+  for (int item = (threadIdx.x >> 5) * cluster_size + rank;; item += step) {
+    const int tile = item / kParts;
+    while (rb < words && tile - first >= words - rb) {
+      first += words - rb;
+      ++rb;
     }
-    mask[idx] = bits;
+    if (rb >= words) break;
+    mask_item(sbox, sarea, scls, lmask, k, words, rb, rb + tile - first, item % kParts, thr,
+              divide_all);
   }
+  cluster_arrive_release();
+  cluster_wait_acquire();
+  if (rank != 0) return;
+
+  if (threadIdx.x < 32) sweep(mask, keepw, words);
   __syncthreads();
-
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
-  uint32_t kw = 0;  // keep word `lane`: bits of columns 32 lane .. 32 lane + 31
-  for (int t = 0; t < 32; ++t) {
-    const int j = lane * 32 + t;
-    if (j < k && valid[j]) kw |= 1u << t;
-  }
-  for (int i = 0; i < k; ++i) {
-    const uint32_t owner = __shfl_sync(kFull, kw, i >> 5);
-    if ((owner >> (i & 31)) & 1u) {  // i is kept: the same branch in every lane
-      if (lane < words) kw &= ~mask[i * words + lane];
-    }
-  }
-  for (int t = 0; t < 32; ++t) {
-    const int j = lane * 32 + t;
-    if (j < k) keep[j] = (kw >> t) & 1u;
-  }
+  store_keep(keep, k, keepw);
 }
+
+// K1's launch floor: nothing, launched as K1 is
+__global__ void __launch_bounds__(kK1Threads)
+nms_empty_kernel(const float4*, const int*, const uint8_t*, uint8_t*, int, int, float) {}
 
 constexpr int kTileRows = 32;       // K2 mask: rows of a block
 constexpr int kTileWords = 8;       // ... and words (256 columns), one thread each
@@ -309,7 +510,38 @@ cudaError_t prepare(Kernel* kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-size_t image_bytes(int k) { return static_cast<size_t>(k) * (sizeof(float4) + 2 * sizeof(float)); }
+using K1Kernel = void(const float4*, const int*, const uint8_t*, uint8_t*, int, int, float);
+
+// K1's launch: batch clusters of cluster_size CTAs, each with K1's shared
+// memory. Returns the cudaError_t; a refused cluster launch or shared-memory
+// opt-in is returned as it is, and nothing else is tried.
+int launch_k1(K1Kernel* kernel, const void* boxes, const void* classes, const void* valid,
+              void* keep, int cluster_size, int batch, int k, float thr, void* stream) {
+  if (k > kK1MaxK || cluster_size < 1 || cluster_size > kMaxCluster) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch == 0 || k == 0) return 0;
+  const size_t smem = k1_smem_bytes(k);
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster_size;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(batch) * cluster_size);
+  cfg.blockDim = dim3(kK1Threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float4*>(boxes),
+                           static_cast<const int*>(classes), static_cast<const uint8_t*>(valid),
+                           static_cast<uint8_t*>(keep), k, cluster_size, thr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -317,17 +549,19 @@ size_t image_bytes(int k) { return static_cast<size_t>(k) * (sizeof(float4) + 2 
 // k) one byte each, all contiguous on the device. Each returns the
 // cudaError_t of its launch (0 when it was accepted).
 extern "C" int nms_suppress(const void* boxes, const void* classes, const void* valid,
-                            void* keep, int batch, int k, float thr, void* stream) {
-  if (k > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0 || k == 0) return 0;
-  const int words = (k + 31) / 32;
-  const size_t smem = image_bytes(k) + static_cast<size_t>(k) * words * sizeof(uint32_t);
-  cudaError_t err = prepare(nms_suppress_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  nms_suppress_kernel<<<batch, kMaskThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(boxes), static_cast<const int*>(classes),
-      static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), k, thr);
-  return static_cast<int>(cudaGetLastError());
+                            void* keep, int cluster_size, int batch, int k, float thr,
+                            void* stream) {
+  return launch_k1(nms_suppress_kernel, boxes, classes, valid, keep, cluster_size, batch, k, thr,
+                   stream);
+}
+
+// An empty kernel launched as K1 is (grid, cluster, block, shared memory,
+// parameters): chip_smoke.py times it as the floor under K1's time.
+extern "C" int nms_launch_floor(const void* boxes, const void* classes, const void* valid,
+                                void* keep, int cluster_size, int batch, int k, float thr,
+                                void* stream) {
+  return launch_k1(nms_empty_kernel, boxes, classes, valid, keep, cluster_size, batch, k, thr,
+                   stream);
 }
 
 // K2 in two launches, which chip_smoke.py also times one by one. scratch

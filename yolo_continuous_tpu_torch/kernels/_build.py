@@ -41,7 +41,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "decode_levels_tma": (_I, ctypes.POINTER(_L), ctypes.POINTER(_F), _P, _I, _I, _L, _I, _P),
     },
     "nms": {
-        "nms_suppress": (_P, _P, _P, _P, _I, _I, _F, _P),
+        "nms_suppress": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+        "nms_launch_floor": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
         "nms_suppress_tiled": (_P, _P, _P, _P, _P, _L, _I, _I, _F, _P),
         "nms_tiled_mask": (_P, _P, _P, _P, _P, _L, _I, _I, _F, _P),
         "nms_tiled_sweep": (_P, _P, _P, _P, _P, _L, _I, _I, _F, _P),

@@ -9,9 +9,11 @@ there and CUDA tensors here, split at K = 1024 as ``ops/nms.py:100-109``.
 
 Both take a batch of score-sorted top-K candidates: boxes ``(B, K, 4)``
 fp32 xyxy, classes ``(B, K)`` int32, valid ``(B, K)`` bool, and return keep
-``(B, K)`` bool. K1 runs one CTA per image; K2 first builds the suppression
-bitmask across all SMs into a scratch tensor that its wrapper allocates,
-then sweeps it with one CTA per image.
+``(B, K)`` bool. K1 runs one thread-block cluster per image in one launch:
+its CTAs build the suppression bitmask into the leader CTA's shared memory,
+which then sweeps it; ``cluster_size`` picks the CTAs an image before the
+launch. K2 first builds the bitmask across all SMs into a scratch tensor
+that its wrapper allocates, then sweeps it with one CTA per image.
 """
 from __future__ import annotations
 
@@ -19,8 +21,34 @@ import torch
 
 from . import _build
 
-K1_MAX = 1024   # K1 keeps a K x K bitmask in shared memory: 128 KB at 1024
+K1_MAX = 1024   # K1 keeps a K x K bitmask in the leader's shared memory: 144 KB at 1024
 K2_MAX = 8192   # K2's sweep: 1 KB of keep words, 192 KB of mask rows; its mask is 8 MB an image
+# copies of csrc/nms.cu's kMaxCluster, kKeepWords, kTileStride and kSmemPerBlock
+K1_MAX_CLUSTER = 8              # CTAs an image: the portable cluster size
+K1_KEEP_WORDS = 36
+K1_TILE_STRIDE = 36              # a mask tile's 32 row words, padded
+SMEM_PER_BLOCK = 227 * 1024
+
+
+def k1_smem_bytes(k: int) -> int:
+    """Shared memory of a K1 CTA, ``csrc/nms.cu::k1_smem_bytes``: a box, an
+    area and a class a candidate, the keep words, and the leader's mask, a
+    padded tile for every pair of row and column words: 172,176 bytes at
+    K1_MAX."""
+    words = (k + 31) // 32
+    return k * (16 + 4 + 4) + 4 * K1_KEEP_WORDS + 4 * K1_TILE_STRIDE * words * words
+
+
+def cluster_size(batch: int, k: int, sm_count: int) -> int:
+    """CTAs a K1 image takes: K1_MAX_CLUSTER, halved while the batch's CTAs
+    would outnumber the SMs, or a CTA would get no 32 x 32 tile of the
+    mask's upper triangle. At least 1."""
+    words = (k + 31) // 32
+    tiles = words * (words + 1) // 2
+    c = K1_MAX_CLUSTER
+    while c > 1 and (batch * c > sm_count or c > tiles):
+        c //= 2
+    return c
 
 
 def mask_words(k: int) -> int:
@@ -50,13 +78,17 @@ def _check(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor, k_ma
         raise ValueError(f"{what} takes K <= {k_max}, got {k}")
 
 
-def _launch(fn: str, boxes, classes, valid, iou_thres: float, scratch=None) -> torch.Tensor:
-    """One C entry point of ``csrc/nms.cu``; K2's take the mask ``scratch``."""
+def _launch(fn: str, boxes, classes, valid, iou_thres: float, scratch=None,
+            cluster=None) -> torch.Tensor:
+    """One C entry point of ``csrc/nms.cu``; K2's take the mask ``scratch``,
+    K1's the ``cluster`` size."""
     keep = torch.empty(valid.shape, device=valid.device, dtype=torch.bool)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     ptrs = (boxes.data_ptr(), classes.data_ptr(), valid.data_ptr(), keep.data_ptr())
     if scratch is not None:
         ptrs += (scratch.data_ptr(), scratch.numel() * scratch.element_size())
+    if cluster is not None:
+        ptrs += (cluster,)
     err = getattr(_build.library("nms"), fn)(*ptrs, boxes.shape[0], boxes.shape[1],
                                              float(iou_thres), stream)
     _build.check(err, fn)
@@ -72,9 +104,13 @@ def tiled_scratch(boxes: torch.Tensor) -> torch.Tensor:
 
 def nms_suppress(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor,
                  iou_thres: float) -> torch.Tensor:
-    """K1: bitmask in shared memory, one-warp greedy sweep (K <= 1024)."""
+    """K1 (K <= 1024): a cluster of ``cluster_size`` CTAs an image builds the
+    bitmask into the leader's shared memory, which sweeps it 32 rows at a
+    time. One launch a call."""
     _check(boxes, classes, valid, K1_MAX, "nms_suppress")
-    keep = _launch("nms_suppress", boxes, classes, valid, iou_thres)
+    sms = torch.cuda.get_device_properties(boxes.device).multi_processor_count
+    keep = _launch("nms_suppress", boxes, classes, valid, iou_thres,
+                   cluster=cluster_size(boxes.shape[0], boxes.shape[1], sms))
     nms_suppress.launches += int(boxes.numel() > 0)
     return keep
 
