@@ -14,7 +14,9 @@ failure exits non-zero before the result line.
    at batch 16, in its TMA form (one launch for all levels), held bit-equal
    to its strided form and timed beside it; K1 NMS at K = 300 x 16 images,
    also timed at 300 x 1 and 1024 x 16 beside an empty kernel launched as
-   K1 is (the launch floor); K2 NMS at K = 2048 and 4096
+   K1 is (the launch floor); K2 NMS at K = 2048, 4096, 8192 and at a
+   640 px plan's 25,200 candidates (against the plain version run class by
+   class, exact as the keep-set is the union of the classes' keep-sets)
    (NMS inputs are 25200 random candidates per image cut to the top K, as
    the JAX bench builds them, plus a chained-overlap case; keep-sets must
    be identical); K4 IBin decode on the three yolov7-IBin @640 levels at
@@ -40,6 +42,20 @@ failure exits non-zero before the result line.
    profiler window; the default and fused-tail paths also the host's
    enqueue time. Then the three paths' forward and request times, measured
    in turns.
+5. train: the train step (``train/train_loop.Trainer.train_step``: forward,
+   SimOTA loss, backward, 3-group SGD-Nesterov, EMA) of yolov7 @640
+   (``cfg/coco_train.yaml``, 80 classes) at batch 16, max_boxes 64, bf16
+   body on fp32 master weights, images from ``RandomState(0)`` and two
+   labels an image (the JAX bench's train section, ``bench.py:105-155``),
+   lr_w, lr_b, mom = 0.01, 0.1, 0.937: one warm-up step, then 10 timed
+   steps; it prints step ms, img/s, peak memory, launches a step
+   (profiler), host enqueue ms a step, the loss parts and ``num_fg``, and
+   fails unless every loss is finite, ``num_fg > 0``, the parameters and
+   the EMA moved and a checkpoint saved on the card loads back bit-equal.
+   Then one step of yolov7-tiny @128, batch 2, fp32, on the card and on the
+   CPU from the same weights: loss parts, ``num_fg``, gradients and updated
+   parameters must agree within the CPU parity tests' tolerances
+   (``tests/test_torch_port_train.py``).
 
 Kernel times are device times: ``cuda_ms`` holds the stream with a sleep
 kernel while the host enqueues the timed calls, so that a kernel shorter
@@ -72,6 +88,11 @@ BIN_GAP = 1e-5      # K4 precondition: top two sigmoided bins of every value thi
 # across a bf16 boundary); fp32 within fp32 summation-order error
 K5_TOL = {"bf16": dict(rtol=8e-3, atol=1e-3), "fp32": dict(rtol=1e-5, atol=1e-4)}
 BS, SIZE, CONF, IOU = 16, 640, 0.25, 0.45
+# one train step, card against CPU (fp32): the tolerances of
+# tests/test_torch_port_train.py, set by the summation order of train-mode
+# BN statistics amplified with depth (PERF.md)
+STEP_LOSS_RTOL = 1e-3        # loss, box, obj, cls
+STEP_REL_L2 = 3e-2           # gradients, updates: |got - want|_2 / |want|_2 over all tensors
 
 
 def fail(msg: str) -> None:
@@ -297,10 +318,45 @@ def phase_kernels(spec, bin_spec, k5_shapes):
                                   launch_floor_ms=shapes["300x16"]["launch_floor_ms"],
                                   host_us=shapes["300x16"]["host_us"])
     tiled_phases(*cases["nms_suppress_tiled"][0][1])
+    report["nms_suppress_tiled"].update(check_k2_full(rs))
 
     report["decode_level_bin"] = check_bin_decode(g, bin_spec)
     report["fused_conv"] = check_fused_conv(g, k5_shapes)
     return report
+
+
+def suppress_plain_by_class(boxes, classes, valid, thr):
+    """The plain keep-set, class by class: the class-aware greedy keep-set is
+    the union of each class's own, in score order, so this is exact, and its
+    IoU matrices stay a class's size (a K x K one is 2.5 GB at 25,200)."""
+    import torch
+    from yolo_continuous_tpu_torch.ops.nms import suppress_plain
+    keep = torch.zeros_like(valid)
+    for b in range(boxes.shape[0]):
+        for c in classes[b].unique():
+            idx = (classes[b] == c).nonzero().squeeze(1)
+            keep[b, idx] = suppress_plain(boxes[b, idx][None], classes[b, idx][None],
+                                          valid[b, idx][None], thr)[0]
+    return keep
+
+
+def check_k2_full(rs) -> dict:
+    """K2 at every candidate of a 640 px plan (K = 25,200, batch 2, 80
+    classes): equal to the plain keep-set, and timed."""
+    import torch
+    from yolo_continuous_tpu_torch.kernels.nms import K2_MAX, k2_ring, nms_suppress_tiled
+    k = 25200
+    args = nms_inputs(rs, k, 2)
+    got = nms_suppress_tiled(*args, IOU)
+    want = suppress_plain_by_class(*args, IOU)
+    if not torch.equal(got, want):
+        fail(f"nms_suppress_tiled K={k}: keep-set differs from the plain version in "
+             f"{int((got != want).sum())} places")
+    ms = cuda_ms(lambda: nms_suppress_tiled(*args, IOU), iters=5)
+    out = dict(k=k, batch=2, ring=k2_ring(k), k_max=K2_MAX, kept=int(got.sum()),
+               valid=int(args[2].sum()), ms=ms, **nms_bound(2, k))
+    print(json.dumps({"nms_suppress_tiled_full": out}), flush=True)
+    return {"ms_25200x2": ms, "bound_ms_25200x2": out["bound_ms"]}
 
 
 def nms_bound(b: int, k: int) -> dict:
@@ -775,14 +831,16 @@ def phase_main():
     return total
 
 
-def profile_window(fn, calls: int = 3) -> dict:
+def profile_window(fn, calls: int = 3, grad: bool = False) -> dict:
     """Kernel time by name and the device's busy share over a few calls
-    (torch.profiler; the profiler's own cost is in the wall time)."""
+    (torch.profiler; the profiler's own cost is in the wall time); ``grad``
+    for a train step, inference mode otherwise."""
+    import contextlib
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
-                                                     ProfilerActivity.CUDA]) as prof:
+    mode = contextlib.nullcontext() if grad else torch.inference_mode()
+    with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -801,6 +859,160 @@ def profile_window(fn, calls: int = 3) -> dict:
             "busy_share": device_ms / wall_ms, "kernels": len(rows),
             "launches_per_call": sum(e.count for e in events) / calls,
             "top": [[name[:70], ms] for name, ms in rows[:10]]}
+
+
+def train_inputs(rs, bs: int, size: int, max_boxes: int, device):
+    """Images from ``rs`` and the JAX bench's two labels an image
+    (bench.py:126-133)."""
+    import torch
+    images = torch.from_numpy(rs.rand(bs, size, size, 3).astype("float32")).to(device)
+    labels = np.zeros((bs, max_boxes, 5), np.float32)
+    labels[:, 0] = [1, 0.5, 0.5, 0.4, 0.4]
+    labels[:, 1] = [3, 0.3, 0.3, 0.2, 0.25]
+    lmask = np.zeros((bs, max_boxes), bool)
+    lmask[:, :2] = True
+    return images, torch.from_numpy(labels).to(device), torch.from_numpy(lmask).to(device)
+
+
+def flat_state(state) -> dict:
+    """Every tensor of a train state, by name, copied: the model, the EMA,
+    the optimizer's buffers."""
+    out = {f"model.{k}": v.detach().clone() for k, v in state["model"].state_dict().items()}
+    out.update({f"ema.{k}": v.clone() for k, v in state["ema"].tree.items()})
+    opt = state["opt"].state_dict()["state"]
+    for i, st in opt.items():
+        out.update({f"opt.{i}.{k}": v.clone() for k, v in st.items() if hasattr(v, "clone")})
+    return out
+
+
+def phase_train():
+    """The train step of yolov7 @640, batch 16, at full width on the card."""
+    import torch
+    from yolo_continuous_tpu_torch.config.plan import TrainPlan
+    from yolo_continuous_tpu_torch.train.checkpoint import (save_checkpoint,
+                                                            train_checkpoint_path, try_load)
+    from yolo_continuous_tpu_torch.train.train_loop import Trainer
+
+    plan = TrainPlan("cfg/coco_train.yaml")
+    plan.image_size, plan.batch_size, plan.max_boxes = SIZE, BS, 64
+    plan.save_path = os.path.join(HERE, "runs", "chip_smoke_train.msgpack")
+    trainer = Trainer(plan, device="cuda")
+    state = trainer.init_state(seed=0)
+    images, labels, lmask = train_inputs(np.random.RandomState(0), BS, SIZE, 64, "cuda")
+    hyper = (0.01, 0.1, 0.937)
+    before = flat_state(state)
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        return trainer.train_step(state, images, labels, lmask, *hyper)[1]
+
+    parts = [step()]                           # warm-up (cuDNN picks its algorithms)
+    torch.cuda.synchronize()
+    step_ms, host_ms = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        parts.append(step())
+        host_ms.append((time.perf_counter() - t0) * 1e3)   # enqueued; the card still runs
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    parts = [{k: float(v) for k, v in p.items()} for p in parts]
+    for i, p in enumerate(parts):
+        if not all(np.isfinite(v) for v in p.values()):
+            fail(f"train step {i}: a loss is not finite: {p}")
+        if not p["num_fg"] > 0:
+            fail(f"train step {i}: num_fg = {p['num_fg']}, SimOTA assigned nothing")
+    after = flat_state(state)
+    moved = {part: max((after[k].float() - before[k].float()).abs().max().item()
+                       for k in before if k.startswith(part + ".") and before[k].is_floating_point())
+             for part in ("model", "ema")}
+    if not (moved["model"] > 0 and moved["ema"] > 0):
+        fail(f"train: the parameters or the EMA did not move: {moved}")
+
+    path = train_checkpoint_path(plan.save_path)
+    save_checkpoint(path, state)
+    other = Trainer(plan, device="cuda")
+    loaded = try_load(path, other.init_state(seed=1))
+    back = flat_state(loaded)
+    if loaded["step"] != state["step"] or loaded["ema"].updates != state["ema"].updates:
+        fail("train checkpoint: step or EMA counter did not load back")
+    if set(back) != set(after) or not all(torch.equal(back[k], after[k]) for k in after):
+        fail("train checkpoint: the state saved on the card does not load back bit-equal")
+    os.remove(path)
+    del other, loaded, back, before
+
+    prof = profile_window(step, calls=2, grad=True)
+    print(json.dumps({"train_step": dict(
+        config="cfg/coco_train.yaml yolov7 640px bf16 body, fp32 master weights", batch=BS,
+        max_boxes=64, lr_w=hyper[0], lr_b=hyper[1], mom=hyper[2], steps=10,
+        step_ms_median=float(np.median(step_ms)), step_ms_min=min(step_ms),
+        step_ms_max=max(step_ms), img_s=BS / float(np.median(step_ms)) * 1e3,
+        host_enqueue_ms_median=float(np.median(host_ms)), host_enqueue_ms=host_ms,
+        max_memory_allocated_gb=peak / 2 ** 30, first=parts[0], last=parts[-1],
+        num_fg=parts[-1]["num_fg"], moved=moved, checkpoint="bit-equal after load",
+        launches_per_step=prof.get("launches_per_call"), profile=prof)}), flush=True)
+    del trainer, state
+    torch.cuda.empty_cache()
+
+
+def rel_l2(got: dict, want: dict) -> float:
+    import torch
+    num = sum(float(((got[k].cpu().double() - want[k].double()) ** 2).sum()) for k in want)
+    den = sum(float((want[k].double() ** 2).sum()) for k in want)
+    return (num / den) ** 0.5
+
+
+def phase_train_reference():
+    """One fp32 train step of yolov7-tiny @128, batch 2, on the card and on
+    the CPU from the same weights."""
+    import torch
+    from yolo_continuous_tpu_torch.config.plan import TrainPlan
+    from yolo_continuous_tpu_torch.train.train_loop import Trainer
+
+    plan = TrainPlan("cfg/coco_train.yaml")
+    plan.model_cfg = "cfg/net/yolov7-tiny.yaml"
+    plan.image_size, plan.batch_size, plan.max_boxes = 128, 2, 8
+    cpu = Trainer(plan, device="cpu", dtype=torch.float32)
+    gpu = Trainer(plan, device="cuda", dtype=torch.float32)
+    sd = {k: v.clone() for k, v in cpu.init_state(seed=0)["model"].state_dict().items()}
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():            # O(1) activations through the depth, as reference_pair
+        for name, t in sd.items():
+            if name.endswith("weight") and t.dim() == 4:
+                t.normal_(0.0, (1.0 / t[0].numel()) ** 0.5, generator=gen)
+            elif name.endswith(("running_mean", "bias")):
+                t.normal_(0.0, 0.1, generator=gen)
+            elif name.endswith("running_var"):
+                t.uniform_(0.5, 1.5, generator=gen)
+    rs = np.random.RandomState(2)
+    images, labels, lmask = train_inputs(rs, 2, 128, 8, "cpu")
+    labels[1, 2] = torch.tensor([7, 0.7, 0.6, 0.3, 0.35])
+    lmask[1, 2] = True
+    out = {}
+    for name, tr in (("cpu", cpu), ("cuda", gpu)):
+        state = tr.init_state(state_dict=sd)
+        old = {k: v.detach().clone() for k, v in state["model"].state_dict().items()}
+        _, parts = tr.train_step(state, images.to(tr.device), labels.to(tr.device),
+                                 lmask.to(tr.device), 0.01, 0.1, 0.937)
+        model = state["model"]
+        out[name] = dict(
+            parts={k: float(v) for k, v in parts.items()},
+            grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            updates={k: (v.detach() - old[k]).cpu() for k, v in model.state_dict().items()
+                     if v.is_floating_point()})
+    c, g = out["cpu"], out["cuda"]
+    for k in ("loss", "box", "obj", "cls"):
+        if not abs(g["parts"][k] - c["parts"][k]) <= STEP_LOSS_RTOL * abs(c["parts"][k]):
+            fail(f"train reference: {k} {g['parts'][k]} on the card, {c['parts'][k]} on the CPU")
+    if g["parts"]["num_fg"] != c["parts"]["num_fg"] or not c["parts"]["num_fg"] > 0:
+        fail(f"train reference: num_fg {g['parts']['num_fg']} on the card, "
+             f"{c['parts']['num_fg']} on the CPU")
+    errs = {"grads": rel_l2(g["grads"], c["grads"]), "updates": rel_l2(g["updates"], c["updates"])}
+    if not max(errs.values()) <= STEP_REL_L2:
+        fail(f"train reference: card vs CPU relative L2 {errs} > {STEP_REL_L2}")
+    print(json.dumps({"train_reference": dict(
+        config="yolov7-tiny 128px fp32 batch 2", cpu=c["parts"], cuda=g["parts"],
+        rel_l2=errs, loss_rtol=STEP_LOSS_RTOL, rel_l2_tol=STEP_REL_L2)}), flush=True)
 
 
 def main() -> None:
@@ -835,6 +1047,8 @@ def main() -> None:
     report = phase_kernels(spec, bin_spec, k5_shapes)
     phase_reference()
     launches = phase_main()
+    phase_train()
+    phase_train_reference()
 
     meta = {
         "decode_level": ("csrc/decode.cu", "yolo_continuous_tpu/kernels/decode_pallas.py:67",
@@ -856,7 +1070,8 @@ def main() -> None:
         # the form timed beside the main one: K3's and K4's strided form, K5's mma.sync form;
         # K1's times at 300 x 1 and 1024 x 16, its launch floor and host time
         other = {k: r[k] for k in ("strided_ms", "mma_sync_ms", "ms_300x1", "ms_1024x16",
-                                   "launch_floor_ms", "host_us") if k in r}
+                                   "launch_floor_ms", "host_us", "ms_25200x2",
+                                   "bound_ms_25200x2") if k in r}
         kernels.append(dict(name=name, route="cuda", source=f"yolo_continuous_tpu_torch/{src}",
                             replaces=replaces, launches=launches[counter],
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

@@ -162,6 +162,112 @@ def test_tiled_nms_kernel_keeps_every_other_box_of_a_chain(cuda):
     assert torch.equal(got, suppress_plain(boxes, classes, valid, 0.45))
 
 
+def _suppress_plain_by_class(boxes, classes, valid, thr):
+    """The plain keep-set class by class: exact, as the class-aware greedy
+    keep-set is the union of the classes' own, and cheap at large K (a
+    class's IoU matrix instead of a K x K one, 2.5 GB at K = 25,200)."""
+    keep = torch.zeros_like(valid)
+    for b in range(boxes.shape[0]):
+        for c in classes[b].unique():
+            idx = (classes[b] == c).nonzero().squeeze(1)
+            keep[b, idx] = suppress_plain(boxes[b, idx][None], classes[b, idx][None],
+                                          valid[b, idx][None], thr)[0]
+    return keep
+
+
+@pytest.mark.parametrize("k", [8193, 9601, 25200, nms_k1k2.K2_MAX])
+def test_tiled_nms_kernel_matches_plain_up_to_k2_max(cuda, k):
+    """K2 past its old 8192 ceiling: 5 chunks in the sweep's ring from
+    K = 9601, 2 at a 640 px plan's 25,200 candidates and at K2_MAX; batch 2,
+    boxes over 80 classes."""
+    args = _boxes(np.random.RandomState(k), 2, k, 80)
+    got = nms_suppress_tiled(*args, 0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _suppress_plain_by_class(*args, 0.45))
+    assert 0 < int(got.sum()) < int(args[2].sum())
+
+
+def test_suppress_above_k2_max_raises_a_documented_error(cuda):
+    args = _boxes(np.random.RandomState(0), 1, nms_k1k2.K2_MAX + 1, 80)
+    n2 = nms_suppress_tiled.launches
+    with pytest.raises(ValueError, match=f"K2_MAX = {nms_k1k2.K2_MAX}"):
+        suppress(*args, 0.45)
+    with pytest.raises(ValueError, match=f"K <= {nms_k1k2.K2_MAX}"):
+        nms_suppress_tiled(*args, 0.45)
+    assert nms_suppress_tiled.launches == n2
+
+
+# one train step on the card against the CPU (fp32): the tolerances of
+# tests/test_torch_port_train.py (train-mode BN statistics summed in another
+# order, amplified with depth; PERF.md)
+STEP_LOSS_RTOL, STEP_REL_L2 = 1e-3, 3e-2
+
+
+def _rel_l2(got, want):
+    num = sum(float(((got[k].cpu().double() - want[k].double()) ** 2).sum()) for k in want)
+    return (num / sum(float((want[k].double() ** 2).sum()) for k in want)) ** 0.5
+
+
+def test_tiny_train_step_on_the_card_matches_the_cpu(cuda):
+    """yolov7-tiny @128, batch 2, fp32: one Trainer.train_step on the card and
+    one on the CPU from the same weights and batch: loss parts, num_fg,
+    gradients and updates, and TF32 left off."""
+    from yolo_continuous_tpu_torch.train.train_loop import Trainer
+    plan = TrainPlan("cfg/coco_train.yaml")
+    plan.model_cfg = "cfg/net/yolov7-tiny.yaml"
+    plan.image_size, plan.batch_size, plan.max_boxes = 128, 2, 8
+    cpu = Trainer(plan, device="cpu", dtype=torch.float32)
+    gpu = Trainer(plan, device="cuda", dtype=torch.float32)
+    assert not torch.backends.cudnn.allow_tf32
+    sd = {k: v.clone() for k, v in cpu.init_state(seed=0)["model"].state_dict().items()}
+    gen = torch.Generator().manual_seed(1)
+    for name, t in sd.items():       # O(1) activations through the depth
+        if name.endswith("weight") and t.dim() == 4:
+            t.normal_(0.0, (1.0 / t[0].numel()) ** 0.5, generator=gen)
+        elif name.endswith(("running_mean", "bias")):
+            t.normal_(0.0, 0.1, generator=gen)
+    rs = np.random.RandomState(2)
+    images = rs.rand(2, 128, 128, 3).astype(np.float32)
+    labels = np.zeros((2, 8, 5), np.float32)
+    labels[:, :3] = [[1, 0.5, 0.5, 0.4, 0.4], [3, 0.3, 0.3, 0.2, 0.25], [7, 0.7, 0.6, 0.3, 0.35]]
+    lmask = np.zeros((2, 8), bool)
+    lmask[:, :3] = True
+    out = {}
+    for tr in (cpu, gpu):
+        state = tr.init_state(state_dict=sd)
+        old = {k: v.detach().clone() for k, v in state["model"].state_dict().items()}
+        _, parts = tr.train_step(state, images, labels, lmask, 0.01, 0.1, 0.937)
+        out[tr.device.type] = (
+            {k: float(v) for k, v in parts.items()},
+            {n: p.grad.cpu() for n, p in state["model"].named_parameters()},
+            {k: (v - old[k]).cpu() for k, v in state["model"].state_dict().items()
+             if v.is_floating_point()})
+    (pc, gc, uc), (pg, gg, ug) = out["cpu"], out["cuda"]
+    assert pg["num_fg"] == pc["num_fg"] > 0
+    for k in ("loss", "box", "obj", "cls"):
+        assert abs(pg[k] - pc[k]) <= STEP_LOSS_RTOL * abs(pc[k]), k
+    assert _rel_l2(gg, gc) <= STEP_REL_L2 and _rel_l2(ug, uc) <= STEP_REL_L2
+
+
+def test_trainer_runs_on_the_card_in_bf16(cuda):
+    """The default Trainer on the card: bf16 body, fp32 master weights and
+    logits, a finite loss, weights that move."""
+    from yolo_continuous_tpu_torch.train.train_loop import Trainer
+    tr = Trainer(TrainPlan(tiny_plan_cfg("IAuxDetect", 64)))
+    state = tr.init_state(seed=0)
+    assert tr.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in state["model"].parameters())
+    w0 = state["model"].model[0].conv.weight.detach().clone()
+    labels = np.zeros((2, 8, 5), np.float32)
+    labels[:, 0] = [1, 0.5, 0.5, 0.4, 0.4]
+    lmask = np.zeros((2, 8), bool)
+    lmask[:, 0] = True
+    _, parts = tr.train_step(state, np.random.RandomState(0).rand(2, 64, 64, 3), labels, lmask,
+                             0.01, 0.1, 0.937)
+    assert torch.isfinite(parts["loss"]) and int(parts["num_fg"]) > 0
+    assert not torch.equal(state["model"].model[0].conv.weight, w0)
+
+
 def test_suppress_dispatches_by_k(cuda):
     rs = np.random.RandomState(0)
     n1, n2 = nms_suppress.launches, nms_suppress_tiled.launches

@@ -29,6 +29,7 @@ def _imported_roots(path: Path):
 
 def test_every_port_module_is_scanned():
     assert len(FILES) > 15 and "yolo_continuous_tpu_torch/detect_api.py" in FILES
+    assert "yolo_continuous_tpu_torch/train/train_loop.py" in FILES
 
 
 @pytest.mark.parametrize("rel", FILES)
@@ -44,7 +45,8 @@ import yolo_continuous_tpu_torch.detect_api, yolo_continuous_tpu_torch.detect
 import yolo_continuous_tpu_torch.tools.jax_weights
 import yolo_continuous_tpu_torch.kernels.decode, yolo_continuous_tpu_torch.kernels.nms
 import yolo_continuous_tpu_torch.kernels.bin_decode, yolo_continuous_tpu_torch.kernels.fused_conv
-import yolo_continuous_tpu_torch.ops.sigmoid_bin
+import yolo_continuous_tpu_torch.ops.sigmoid_bin, yolo_continuous_tpu_torch.ops.schedules
+import yolo_continuous_tpu_torch.train.train_loop, yolo_continuous_tpu_torch.train.checkpoint
 import torch
 from yolo_continuous_tpu_torch.kernels import _build
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r} or m == "triton")

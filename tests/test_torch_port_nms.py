@@ -19,7 +19,8 @@ from yolo_continuous_tpu.kernels.nms_pallas import pallas_suppress, pallas_suppr
 from yolo_continuous_tpu.ops import nms as jax_nms
 from yolo_continuous_tpu.ops.boxes import box_iou as jax_box_iou
 from yolo_continuous_tpu_torch.kernels import nms as k1k2
-from yolo_continuous_tpu_torch.kernels.nms import (K2_MAX, cluster_size, k1_smem_bytes, mask_words,
+from yolo_continuous_tpu_torch.kernels.nms import (K2_MAX, cluster_size, k1_smem_bytes, k2_ring,
+                                                   k2_sweep_smem, mask_words,
                                                     nms_suppress, nms_suppress_tiled, tiled_scratch)
 from yolo_continuous_tpu_torch.ops import nms
 from yolo_continuous_tpu_torch.ops.boxes import box_iou
@@ -150,7 +151,7 @@ def test_nms_kernels_take_cuda_tensors_only(kernel):
     assert kernel.launches == 0
 
 
-@pytest.mark.parametrize("k", [1, 31, 32, 33, 1025, 1500, 4096, K2_MAX])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 1025, 1500, 4096, 8192, 25200, K2_MAX])
 def test_k2_mask_rows_cover_k_columns_in_16_byte_words(k):
     words = mask_words(k)
     assert words % 4 == 0 and 32 * words >= k and 32 * (words - 4) < k
@@ -189,3 +190,52 @@ def test_cluster_size_halves_to_fit_the_sms_and_the_tiles():
     assert [cluster_size(b, 300, 132) for b in (1, 16, 17, 33, 34, 66, 67)] == [8, 8, 4, 4, 2, 2, 1]
     assert cluster_size(16, 300, 114) == 4
     assert [cluster_size(1, k, 132) for k in (1, 32, 33, 64, 65, 96, 97, 1024)] == [1, 1, 2, 2, 4, 4, 8, 8]
+
+
+def test_k2_ring_constants_are_the_kernels():
+    """K2_MAX and K2_MAX_RING copy kTiledMaxK and kMaxRing of csrc/nms.cu;
+    k2_sweep_smem copies its k2_sweep_smem. The ring holds 6 chunks up to
+    K = 9600, 2 at a 640 px plan's 25,200 candidates, 2 at K2_MAX and none
+    above."""
+    src = (pathlib.Path(k1k2.__file__).parent.parent / "csrc" / "nms.cu").read_text()
+
+    def const(name):
+        return eval(re.search(rf"constexpr \w+ {name} = ([^;]+);", src).group(1))
+
+    assert (const("kTiledMaxK"), const("kMaxRing")) == (K2_MAX, k1k2.K2_MAX_RING) == (28544, 6)
+    assert ("return static_cast<size_t>(ring) * 32 * mask_stride(k) * 4 + "
+            "static_cast<size_t>(mask_stride(k)) * 4;" in src)
+    assert [k2_ring(k) for k in (1025, 8192, 9600, 9601, 25200, K2_MAX, K2_MAX + 1)] == \
+        [6, 6, 6, 5, 2, 2, 0]
+    assert k2_sweep_smem(25200, 2) == 2 * 32 * 788 * 4 + 788 * 4 == 204880
+    assert k2_sweep_smem(K2_MAX, 2) <= k1k2.SMEM_PER_BLOCK < k2_sweep_smem(K2_MAX + 1, 2)
+
+
+def _epsilon_pair():
+    """Two 6 px boxes at 640 px, 2.27585 px apart (ROADMAP Queue 3, fault 2):
+    IoU just above 0.45 as ``inter / union``, just below it as
+    ``inter / (union + 1e-9)``, the TPU kernels' denominator."""
+    f = np.float32
+    a = np.array([100.0, 300.0, 106.0, 306.0], f) / f(640)
+    b = np.array([102.27585, 300.0, 108.27585, 306.0], f) / f(640)
+    return np.stack([a, b]).astype(f), np.zeros(2, np.int32), np.ones(2, bool)
+
+
+def test_iou_without_epsilon_follows_the_xla_route():
+    """The port divides by the union as JAX's XLA route does (the oracle of
+    the JAX tests), not by union + 1e-9 as the Pallas kernels do: on this
+    pair, at thr 0.45, the port and ``_fixpoint_suppress`` suppress the second
+    box and the Pallas kernels in interpret mode keep it."""
+    boxes, classes, valid = _epsilon_pair()
+    iou = box_iou(torch.from_numpy(boxes), torch.from_numpy(boxes))[0, 1].item()
+    inter = np.float32((boxes[0, 2] - boxes[1, 0]) * (boxes[0, 3] - boxes[0, 1]))
+    area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    with_eps = inter / (area[0] + area[1] - inter + np.float32(1e-9))
+    assert iou > 0.45 >= with_eps                                  # the pair straddles thr
+    port = _port_keep_sets(boxes, classes, valid, 0.45)
+    ref = _jax_keep_sets(boxes, classes, valid, 0.45)
+    np.testing.assert_array_equal(np.asarray(ref["jax_fixpoint"]), [True, False])
+    for name, keep in port.items():
+        np.testing.assert_array_equal(keep.numpy(), [True, False], err_msg=name)
+    for name in ("pallas_k1", "pallas_k2"):
+        np.testing.assert_array_equal(np.asarray(ref[name]), [True, True], err_msg=name)

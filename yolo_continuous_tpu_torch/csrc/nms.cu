@@ -16,11 +16,19 @@
 // no epsilon, in the same order of rounded operations:
 //   inter = max(min(x2i,x2j) - max(x1i,x1j), 0) * max(min(y2i,y2j) - max(y1i,y1j), 0)
 //   iou   = inter / ((area_i + area_j) - inter)
-// The TPU kernel adds 1e-9 to the denominator; either way a pair of
-// zero-area boxes never suppresses (0/0 = NaN and NaN > thr is false here,
-// 0/1e-9 = 0 there). The _rn intrinsics keep nvcc from contracting a
-// multiply and an add into one FMA, which would round differently from the
-// plain version and could flip a comparison that sits on the threshold.
+// This is the JAX package's XLA route (ops/boxes.py:75, ops/nms.py
+// _fixpoint_suppress), the oracle its own tests hold the Pallas kernels to.
+// The TPU kernels divide by union + 1e-9 (nms_pallas.py:43,114). That is a
+// choice, and it can decide a pair differently: with normalized coordinates
+// 1e-9 moves the IoU of small boxes by far more than an fp32 ulp (two 6 px
+// boxes at 640 px, 2.276 px apart: an IoU just above 0.45 without it, just
+// below with it; at thr 0.45 the XLA route and this kernel suppress the
+// second box, the TPU kernels keep it; tests/test_torch_port_nms.py pins
+// the pair). A pair of zero-area boxes never suppresses either way (0/0 =
+// NaN and NaN > thr is false here, 0/1e-9 = 0 there). The _rn intrinsics
+// keep nvcc from contracting a multiply and an add into one FMA, which
+// would round differently from the plain version and could flip a
+// comparison that sits on the threshold.
 //
 // What bounds them on the H100: neither bytes nor flops. At the production
 // K = 300 an image is 6.6 KB of input and 45k IoU pairs; the bound from
@@ -75,8 +83,12 @@
 //      the 32 diagonal mask words; then every thread clears, for all kept
 //      rows of the chunk, one word beyond the diagonal. Mask words at or
 //      left of the diagonal are never read. The rows do not depend on the
-//      decisions, so they come ahead with cp.async into a ring of 6 chunks
-//      in shared memory, only the words the sweep will read.
+//      decisions, so they come ahead with cp.async into a ring of chunks in
+//      shared memory, only the words the sweep will read: as many chunks,
+//      at most 6, as fit in 227 KB beside the keep words (k2_ring), so that
+//      a ring of two still fits at K = 28,544 (two chunks of 892-word rows,
+//      223 KB, and 3.5 KB of keep words), where a 640 px plan's 25,200
+//      candidates take 205 KB. Above kTiledMaxK a launch is refused.
 // The two phases are two launches of one call; the greedy keep-set is
 // exact, the same as K1's and the plain version's.
 #include <cooperative_groups.h>
@@ -357,11 +369,27 @@ constexpr int kTileRows = 32;       // K2 mask: rows of a block
 constexpr int kTileWords = 8;       // ... and words (256 columns), one thread each
 constexpr int kTileThreads = kTileRows * kTileWords;
 constexpr int kSweepThreads = 256;  // K2 sweep: one CTA per image
-constexpr int kRing = 6;            // chunks of 32 mask rows in flight: 192 KB at K = 8192
-constexpr int kTiledMaxK = 8192;    // 1 KB of keep words, a ring of 192 KB
+constexpr int kMaxRing = 6;         // chunks of 32 mask rows in flight, at most
+constexpr int kTiledMaxK = 28544;   // the largest K whose ring of 2 chunks fits beside the keep words
 
 // words of a mask row: ceil(k/32) rounded up to 16 bytes
-__host__ __device__ __forceinline__ int mask_stride(int k) { return ((k + 31) / 32 + 3) / 4 * 4; }
+__host__ __device__ constexpr int mask_stride(int k) { return ((k + 31) / 32 + 3) / 4 * 4; }
+
+// K2 sweep's shared memory: a ring of `ring` chunks of 32 rows, then the
+// keep words (one a mask word, so 16-byte aligned); all dynamic
+__host__ __device__ constexpr size_t k2_sweep_smem(int k, int ring) {
+  return static_cast<size_t>(ring) * 32 * mask_stride(k) * 4 + static_cast<size_t>(mask_stride(k)) * 4;
+}
+
+// the most chunks, at most kMaxRing, that fit; 0 where not even 2 do
+__host__ __device__ constexpr int k2_ring(int k) {
+  int ring = kMaxRing;
+  while (ring >= 2 && k2_sweep_smem(k, ring) > kSmemPerBlock) --ring;
+  return ring >= 2 ? ring : 0;
+}
+static_assert(k2_ring(kTiledMaxK) == 2 && k2_ring(kTiledMaxK + 1) == 0,
+              "kTiledMaxK is the largest K whose ring of two chunks fits");
+static_assert(k2_ring(8192) == kMaxRing && k2_ring(25200) == 2, "K2's rings at 8192 and 25200");
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
@@ -428,13 +456,14 @@ nms_tiled_mask_kernel(const float4* __restrict__ boxes, const int* __restrict__ 
   mask[static_cast<long long>(i) * mask_stride(k) + w] = bits;
 }
 
+template <int kRing>
 __global__ void __launch_bounds__(kSweepThreads)
 nms_tiled_sweep_kernel(const uint8_t* __restrict__ valid, const uint32_t* __restrict__ mask,
                        uint8_t* __restrict__ keep, int k) {
   extern __shared__ __align__(16) uint32_t ring[];   // kRing chunks of 32 rows x stride words
-  __shared__ uint32_t keepw[kTiledMaxK / 32];
   const int words = (k + 31) / 32;
   const int stride = mask_stride(k);
+  uint32_t* keepw = ring + kRing * 32 * stride;      // then the keep words
   const long long img = blockIdx.x;
   valid += img * k;
   keep += img * k;
@@ -582,6 +611,21 @@ extern "C" int nms_tiled_mask(const void* boxes, const void* classes, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kRing>
+cudaError_t launch_sweep(const void* valid, const void* scratch, void* keep, int batch, int k,
+                         void* stream) {
+  const size_t smem = k2_sweep_smem(k, kRing);
+  // opt in to the dynamic shared memory whatever its size
+  cudaError_t err = cudaFuncSetAttribute(nms_tiled_sweep_kernel<kRing>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  nms_tiled_sweep_kernel<kRing><<<batch, kSweepThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(valid), static_cast<const uint32_t*>(scratch),
+      static_cast<uint8_t*>(keep), k);
+  return cudaGetLastError();
+}
+
 extern "C" int nms_tiled_sweep(const void* boxes, const void* classes, const void* valid,
                                void* keep, void* scratch, long long scratch_bytes, int batch, int k,
                                float thr, void* stream) {
@@ -589,17 +633,14 @@ extern "C" int nms_tiled_sweep(const void* boxes, const void* classes, const voi
   if (k > kTiledMaxK || scratch_bytes < static_cast<long long>(batch) * k * mask_stride(k) * 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(kRing) * 32 * mask_stride(k) * sizeof(uint32_t);
-  // the ring is dynamic shared memory beside the static keep words: opt in
-  // whatever its size
-  cudaError_t err = cudaFuncSetAttribute(nms_tiled_sweep_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  nms_tiled_sweep_kernel<<<batch, kSweepThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(valid), static_cast<const uint32_t*>(scratch),
-      static_cast<uint8_t*>(keep), k);
-  return static_cast<int>(cudaGetLastError());
+  switch (k2_ring(k)) {
+    case 6: return static_cast<int>(launch_sweep<6>(valid, scratch, keep, batch, k, stream));
+    case 5: return static_cast<int>(launch_sweep<5>(valid, scratch, keep, batch, k, stream));
+    case 4: return static_cast<int>(launch_sweep<4>(valid, scratch, keep, batch, k, stream));
+    case 3: return static_cast<int>(launch_sweep<3>(valid, scratch, keep, batch, k, stream));
+    case 2: return static_cast<int>(launch_sweep<2>(valid, scratch, keep, batch, k, stream));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int nms_suppress_tiled(const void* boxes, const void* classes, const void* valid,

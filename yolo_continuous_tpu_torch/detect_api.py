@@ -8,8 +8,8 @@ un-mapping. Everything up to the fixed-size NMS result stays on the device.
 
 Runs on ``cuda`` by default and raises if there is no CUDA device; pass
 ``device="cpu"`` for the plain CPU path (the tests do). Not ported yet:
-``fuse``, ``quantize``, ``calibrate``, ``head_dtype``, ``reload_weights``
-and flax ``.msgpack`` checkpoints (ROADMAP.md).
+``fuse``, ``quantize``, ``calibrate``, ``head_dtype`` and
+``reload_weights`` (ROADMAP.md).
 
 Deliberate fix kept from the JAX package: prediction runs on RGB, as
 training does (the reference predicts on cv2's BGR, ``detect.py:23``).
@@ -29,6 +29,9 @@ from .nn.builder import YoloModel, build_model_spec
 from .ops.decode import decode_outputs, decode_outputs_bin
 from .ops.nms import batched_nms, yolo_correct_boxes
 from .ops.preprocess import cv2, letterbox
+from .tools.jax_weights import state_dict_from_jax
+from .train.checkpoint import (jax_weights, load_checkpoint, read_jax_msgpack, serving_state_dict,
+                               train_checkpoint_path)
 
 
 @dataclass
@@ -75,11 +78,31 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def saved_weights(save_path: str, spec, use_ema: bool = True):
+    """The state dict saved for a plan, or None: a ``.pth`` beside
+    ``save_path``, then the port's train checkpoint, then the JAX package's
+    ``.msgpack`` at ``save_path`` (EMA weights unless ``not use_ema``)."""
+    pth = os.path.splitext(save_path)[0] + ".pth"
+    if os.path.exists(pth):
+        return torch.load(pth, map_location="cpu", weights_only=True)
+    train_ckpt = train_checkpoint_path(save_path)
+    if os.path.exists(train_ckpt):
+        return serving_state_dict(load_checkpoint(train_ckpt), use_ema)
+    if os.path.exists(save_path):
+        return state_dict_from_jax(spec, *jax_weights(read_jax_msgpack(save_path), use_ema))
+    return None
+
+
 class Detector:
     """A plan's model with its weights, serving end-to-end inference.
 
-    Weights come from ``state_dict``, else from a ``.pth`` next to the
-    plan's ``save_path``, else a random init seeded by ``seed``. The body
+    Weights, the first of: ``state_dict``; a ``.pth`` state dict beside the
+    plan's ``save_path``; the port's train checkpoint there
+    (``train/checkpoint.train_checkpoint_path``); the JAX package's
+    checkpoint at ``save_path`` itself (``.msgpack``, read without flax);
+    else a random init seeded by ``seed``, as JAX serves its init when no
+    file exists. From a train checkpoint ``use_ema`` (default) takes the EMA
+    weights, as the JAX ``Detector`` does, else the raw ones. The body
     runs in ``dtype`` (bf16 on CUDA, fp32 on the CPU, as
     ``detect_api.py:93-94``); the head logits are fp32.
 
@@ -95,7 +118,7 @@ class Detector:
 
     def __init__(self, plan: TrainPlan, device="cuda", dtype: Optional[torch.dtype] = None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None, seed: int = 0,
-                 fused_tails: Optional[bool] = None):
+                 fused_tails: Optional[bool] = None, use_ema: bool = True):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
@@ -110,9 +133,7 @@ class Detector:
         self.fused_tails = bool(fused_tails)
         model = YoloModel(self.spec, fused_tails=self.fused_tails)
         if state_dict is None:
-            pth = os.path.splitext(plan.save_path)[0] + ".pth"
-            if os.path.exists(pth):
-                state_dict = torch.load(pth, map_location="cpu", weights_only=True)
+            state_dict = saved_weights(plan.save_path, self.spec, use_ema)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         else:

@@ -22,7 +22,10 @@ import torch
 from . import _build
 
 K1_MAX = 1024   # K1 keeps a K x K bitmask in the leader's shared memory: 144 KB at 1024
-K2_MAX = 8192   # K2's sweep: 1 KB of keep words, 192 KB of mask rows; its mask is 8 MB an image
+# K2's sweep keeps a ring of 32-row chunks of the mask beside the keep words:
+# 2 chunks still fit at K2_MAX (k2_ring); its mask is 102 MB an image there
+K2_MAX = 28544
+K2_MAX_RING = 6
 # copies of csrc/nms.cu's kMaxCluster, kKeepWords, kTileStride and kSmemPerBlock
 K1_MAX_CLUSTER = 8              # CTAs an image: the portable cluster size
 K1_KEEP_WORDS = 36
@@ -55,6 +58,21 @@ def mask_words(k: int) -> int:
     """uint32 words of one row of K2's mask: ceil(K/32), rounded up to 4
     (``csrc/nms.cu::mask_stride``)."""
     return ((k + 31) // 32 + 3) // 4 * 4
+
+
+def k2_sweep_smem(k: int, ring: int) -> int:
+    """Shared memory of K2's sweep, ``csrc/nms.cu::k2_sweep_smem``: ``ring``
+    chunks of 32 mask rows, then one keep word a mask word."""
+    return ring * 32 * mask_words(k) * 4 + mask_words(k) * 4
+
+
+def k2_ring(k: int) -> int:
+    """Chunks in K2's sweep ring, ``csrc/nms.cu::k2_ring``: the most, at most
+    K2_MAX_RING, that fit in a block's shared memory; 0 where two do not."""
+    ring = K2_MAX_RING
+    while ring >= 2 and k2_sweep_smem(k, ring) > SMEM_PER_BLOCK:
+        ring -= 1
+    return ring if ring >= 2 else 0
 
 
 def _check(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor, k_max: int, what: str):
@@ -97,7 +115,7 @@ def _launch(fn: str, boxes, classes, valid, iou_thres: float, scratch=None,
 
 def tiled_scratch(boxes: torch.Tensor) -> torch.Tensor:
     """K2's mask: (B, K, mask_words(K)) uint32 words (as int32), 32 MB at
-    K = 4096 x 16 images and 128 MB at K2_MAX x 16."""
+    K = 4096 x 16 images and 79 MB an image at 25,200."""
     b, k = boxes.shape[:2]
     return torch.empty((b, k, mask_words(k)), device=boxes.device, dtype=torch.int32)
 
@@ -118,7 +136,7 @@ def nms_suppress(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor
 def nms_suppress_tiled(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor,
                        iou_thres: float) -> torch.Tensor:
     """K2: the bitmask across all SMs, then a sweep of it, one CTA per image
-    (any K <= 8192)."""
+    (any K <= K2_MAX)."""
     _check(boxes, classes, valid, K2_MAX, "nms_suppress_tiled")
     keep = _launch("nms_suppress_tiled", boxes, classes, valid, iou_thres,
                    scratch=tiled_scratch(boxes))

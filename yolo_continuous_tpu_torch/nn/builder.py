@@ -369,12 +369,15 @@ class YoloModel(nn.Module):
         self.dtype = torch.float32
         self.model = nn.ModuleList([_make_layer(s, spec, fused_tails) for s in spec.layers])
 
-    def set_dtype(self, dtype: torch.dtype) -> "YoloModel":
-        """Body convs to ``dtype``; BN statistics and head stay fp32, the
-        head multiplies in ``dtype`` (layers.LogitConv)."""
+    def set_dtype(self, dtype: torch.dtype, cast_weights: bool = True) -> "YoloModel":
+        """The body runs in ``dtype``; BN statistics and head stay fp32, the
+        head multiplies in ``dtype`` (layers.LogitConv). ``cast_weights``
+        (serving) casts the body convs' weights once; without it (training)
+        they stay fp32 master weights, cast on every call
+        (``layers.BodyConv2d``)."""
         self.dtype = dtype
         for m in self.modules():
-            if type(m) is nn.Conv2d:
+            if isinstance(m, L.BodyConv2d) and cast_weights:
                 m.to(dtype)
             elif isinstance(m, L.LogitConv):
                 m.mult_dtype = dtype

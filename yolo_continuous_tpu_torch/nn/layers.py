@@ -14,11 +14,20 @@ Numerics follow the JAX package, not torch defaults, where they differ:
 - ``LogitConv`` (``layers.py:160-193``) rounds input and weight to the body
   dtype but multiplies and accumulates in fp32, so the head logits are
   never rounded to bf16.
+- BatchNorm in train mode takes its statistics as ``_batch_stats`` does
+  (``layers.py:254-260``): fp32 mean and ``max(E[x^2] - E[x]^2, 0)`` over
+  (N, H, W), normalizes with the same fold, and updates the running
+  statistics with flax momentum 0.9 and the unbiased variance.
+- ``mp`` in training is a max over a reshaped 2 x 2 window
+  (``layers.py:295-308``): the values of a max pool, and a gradient split
+  evenly over ties.
 - ``sp`` pads with -inf and ``sp_pyramid`` cascades the (5, 9, 13) ladder
   (``layers.py:324-361``); the values equal the direct pools.
 
-Parameters and BN statistics are fp32. ``YoloModel.set_dtype`` casts the
-body's plain convolutions to the body dtype (bf16 on CUDA).
+Parameters and BN statistics are fp32. Every body convolution
+(``BodyConv2d``) casts its weight to its input's dtype, so a bf16 body
+trains on fp32 master weights, as flax's ``dtype=bf16, param_dtype=fp32``.
+For serving, ``YoloModel.set_dtype`` casts the weights themselves once.
 """
 from __future__ import annotations
 
@@ -58,11 +67,27 @@ def apply_act(x: torch.Tensor, act: ActSpec) -> torch.Tensor:
                               "(ROADMAP.md Queue 1 item 15)")
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm with the JAX package's inference fold (eps 1e-5).
+BN_MOMENTUM = 0.9   # flax's momentum: running = 0.9 * running + 0.1 * batch
 
-    Training mode is torch's own batch norm; the train slice of the port
-    will hold it against the JAX statistics (ROADMAP Queue 3).
+
+def batch_stats(x: torch.Tensor):
+    """Per-channel mean and biased variance of NCHW ``x`` over (N, H, W), in
+    fp32, as JAX ``_batch_stats``: ``max(E[x^2] - E[x]^2, 0)``."""
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    return mean, var
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with the JAX package's numerics (eps 1e-5), ``_BNCore``.
+
+    Both modes fold ``inv = weight * rsqrt(var + eps)`` and ``shift = bias -
+    mean * inv`` in fp32 and compute ``x * inv + shift`` in the input's dtype:
+    eval with the running statistics, train with ``batch_stats`` (gradients
+    flow through them). Train mode also updates the running statistics as
+    flax does: ``0.9 * running + 0.1 * batch``, the variance unbiased by
+    ``n / (n - 1)``. ``num_batches_tracked`` is left as it is (JAX has none).
     """
 
     def __init__(self, c: int):
@@ -70,10 +95,27 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            return super().forward(x)
-        inv = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * inv
+            mean, var = batch_stats(x)
+            with torch.no_grad():
+                n = x.numel() / x.shape[1]
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                unbiased = var * (n / max(n - 1.0, 1.0))
+                self.running_var.copy_(m * self.running_var + (1 - m) * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = self.weight * torch.rsqrt(var + self.eps)
+        shift = self.bias - mean * inv
         return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+class BodyConv2d(nn.Conv2d):
+    """A body convolution: its weight is cast to the input's dtype on every
+    call (a no-op once ``YoloModel.set_dtype`` has cast it), so fp32 master
+    weights train a bf16 body."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
 
 
 class LogitConv(nn.Conv2d):
@@ -109,7 +151,7 @@ class Conv(nn.Module):
                  p: Optional[int] = None, g: int = 1, act: ActSpec = True,
                  fused_tail: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
+        self.conv = BodyConv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
         self.bn = BatchNorm2d(c2)
         self.act = act
         self.fused_tail = fused_tail and k == 1 and s == 1 and g == 1 and act is True
@@ -130,7 +172,16 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 
 
 def mp(x: torch.Tensor, k: int = 2) -> torch.Tensor:
-    """MP: maxpool k=s=2; nets/common.py:25-31."""
+    """MP: maxpool k=s=2; nets/common.py:25-31.
+
+    Where a gradient is recorded, as JAX ``max_pool`` (``layers.py:295-308``):
+    a max over the reshaped window where the sides divide by k, whose
+    gradient splits a tie evenly (``F.max_pool2d`` gives it all to one
+    element). Without one, the pool: the same values in less time (on an
+    H100 the reduction took 1.9 ms of a yolov7 @640 bs16 request)."""
+    b, c, h, w = x.shape
+    if torch.is_grad_enabled() and x.requires_grad and h % k == 0 and w % k == 0:
+        return x.reshape(b, c, h // k, k, w // k, k).amax((3, 5))
     return F.max_pool2d(x, k, k)
 
 
@@ -262,9 +313,9 @@ class RepConv(nn.Module):
                 "RepConv deploy form is not ported yet (ROADMAP.md Queue 1 item 15)")
         self.act = act
         self.rbr_dense = nn.Sequential(
-            nn.Conv2d(c1, c2, 3, s, 1, groups=g, bias=False), BatchNorm2d(c2))
+            BodyConv2d(c1, c2, 3, s, 1, groups=g, bias=False), BatchNorm2d(c2))
         self.rbr_1x1 = nn.Sequential(
-            nn.Conv2d(c1, c2, 1, s, 0, groups=g, bias=False), BatchNorm2d(c2))
+            BodyConv2d(c1, c2, 1, s, 0, groups=g, bias=False), BatchNorm2d(c2))
         self.rbr_identity = BatchNorm2d(c1) if (c2 == c1 and s == 1) else None
 
     def forward(self, x):

@@ -13,7 +13,16 @@ Pallas in JAX. Step 3 is ``suppress``: CUDA tensors go to kernel K1
 (K <= 1024) or K2 (K > 1024), split as ``nms.py:100-109``
 (``kernels/nms.py``, ``csrc/nms.cu``); CPU tensors go to the plain version
 ``suppress_plain``, the fixpoint of ``_fixpoint_suppress``. The batch is
-written out where JAX uses ``vmap``.
+written out where JAX uses ``vmap``. On CUDA K may be at most ``K2_MAX``
+(28,544, above a 640 px plan's 25,200 candidates); above it ``suppress``
+raises a ValueError. The plain path has no limit.
+
+IoU is ``box_iou``'s ``inter / union``, as JAX's XLA route
+(``ops/boxes.py:75``), which is the oracle of the JAX tests. JAX's TPU
+kernels divide by ``union + 1e-9`` (``kernels/nms_pallas.py:43,114``), which
+decides some pairs of small boxes differently at the threshold; the port
+keeps the XLA route (``csrc/nms.cu`` says more, and
+``tests/test_torch_port_nms.py`` pins such a pair).
 """
 from __future__ import annotations
 
@@ -69,7 +78,11 @@ def suppress(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor,
     """Keep-set of score-sorted candidates: kernel K1/K2 for CUDA tensors,
     ``suppress_plain`` for CPU tensors."""
     if boxes.device.type == "cuda":
-        from ..kernels.nms import K1_MAX, nms_suppress, nms_suppress_tiled
+        from ..kernels.nms import K1_MAX, K2_MAX, nms_suppress, nms_suppress_tiled
+        if boxes.shape[1] > K2_MAX:
+            raise ValueError(f"NMS on CUDA takes at most K2_MAX = {K2_MAX} candidates an image "
+                             f"(max_det), got {boxes.shape[1]}: the sweep of kernel K2 keeps two "
+                             "32-row chunks of its mask in a block's shared memory")
         args = (boxes.contiguous(), classes.to(torch.int32).contiguous(), valid.contiguous())
         if boxes.shape[1] > K1_MAX:
             # the (K, K) bitmask of K1 outgrows shared memory; beyond that,
