@@ -56,14 +56,33 @@ failure exits non-zero before the result line.
    CPU from the same weights: loss parts, ``num_fg``, gradients and updated
    parameters must agree within the CPU parity tests' tolerances
    (``tests/test_torch_port_train.py``).
+6. train_run: ``Trainer.run`` trains yolov7 @640 from a plan: a copy of
+   ``cfg/coco_train.yaml`` pointed at a JPEG dataset the phase writes
+   (64 train and 16 val images of mixed aspect ratios, 1-8 boxes each, from
+   ``RandomState(0)``), batch 16, bf16 body, ``mosaic_prob`` and
+   ``mixup_prob`` 0.5 (the stock enhance YAML never mosaics), UD flips from
+   the enhance YAML, ``val_map_every: 1``: 2 epochs with ``device_cache``
+   on, then the plan extended to 3 epochs and resumed from ``.last`` with
+   it off (the prefetch thread staging with cv2). It prints each epoch's
+   line and a JSON record (step ms, augment and train-step ms a step by
+   CUDA events, the host's data-wait ms of every step, img/s, peak memory,
+   mAP), and fails unless every loss is finite, the checkpoints
+   (``.train.pt``, ``.last``, ``.bestmap``) exist, every mAP is in [0, 1],
+   the resume starts at step 8, and every ``validate_map`` (EMA weights
+   through the ``Detector``, max_det 300) launched K3 and K1: their
+   counters are set to 0 just before each call and read just after. Then
+   one batch's augmentation from the pool, timed alone: the profiler's
+   summed kernel time, CUDA events with the stream held, and the host's
+   enqueue time.
 
 Kernel times are device times: ``cuda_ms`` holds the stream with a sleep
 kernel while the host enqueues the timed calls, so that a kernel shorter
 than its wrapper's host time is not timed at the host's pace.
 
 Before the last line it prints the ``kernels`` JSON line (time, bound,
-launches, error of each kernel) and the card's name and power limit; the
-last line is ``{"ok": true, "device": {...}}``.
+error of each kernel; ``launches`` on phase 4's main paths and
+``launches_validate_map`` on phase 6's ``validate_map`` calls) and the
+card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 import copy
 import json
@@ -1015,6 +1034,168 @@ def phase_train_reference():
         rel_l2=errs, loss_rtol=STEP_LOSS_RTOL, rel_l2_tol=STEP_REL_L2)}), flush=True)
 
 
+def write_jpeg_dataset(root: str, n: int, rs, prefix: str) -> str:
+    """``n`` JPEGs of mixed aspect ratios under ``root``, each a smooth
+    background with 1-8 filled boxes of 80 classes, and their annotation
+    file; returns its path."""
+    import cv2
+    shapes = ((480, 640), (640, 480), (512, 512), (360, 640), (640, 427))
+    lines = []
+    for i in range(n):
+        h, w = shapes[i % len(shapes)]
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = rs.randint(40, 200, 3)
+        img = np.clip(base + 40 * np.sin(xx / rs.uniform(20, 80))[..., None]
+                      + 30 * np.cos(yy / rs.uniform(20, 80))[..., None], 0, 255).astype(np.uint8)
+        boxes = []
+        for _ in range(rs.randint(1, 9)):
+            bw, bh = rs.randint(w // 12, w // 3), rs.randint(h // 12, h // 3)
+            x, y = rs.randint(0, w - bw), rs.randint(0, h - bh)
+            cls = rs.randint(80)
+            img[y:y + bh, x:x + bw] = ((cls * 37) % 256, (cls * 91) % 256, (cls * 53) % 256)
+            boxes.append(f"{x},{y},{x + bw},{y + bh},{cls}")
+        path = os.path.join(root, f"{prefix}{i:03d}.jpg")
+        cv2.imwrite(path, img)
+        lines.append(" ".join([path] + boxes) + "\n")
+    ann = os.path.join(root, f"{prefix}.txt")
+    with open(ann, "w") as f:
+        f.writelines(lines)
+    return ann
+
+
+def plan_copy(root: str, name: str, **keys) -> str:
+    """``cfg/coco_train.yaml`` copied to ``root/name`` with ``keys`` set (its
+    own lines replaced, the others appended)."""
+    with open("cfg/coco_train.yaml") as f:
+        lines = f.read().splitlines()
+    out = [line for line in lines if line.split(":")[0].strip() not in keys]
+    out += [f"{k}: {v}" for k, v in keys.items()]
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+    return path
+
+
+def augment_alone(trainer, train_ann: str) -> dict:
+    """One batch's augmentation from the device pool, as epoch 1 of the
+    run draws it (the draws and indices already on the card), timed alone:
+    the profiler's summed kernel time and launches, CUDA events with the
+    stream held while the host enqueues, and the host's enqueue time."""
+    from yolo_continuous_tpu_torch.data.dataset import YoloDataset, load_annotation_file
+    from yolo_continuous_tpu_torch.ops.augment import augment_batch_from_pool, to_device
+    plan = trainer.plan
+    ds = YoloDataset(load_annotation_file(train_ann), plan.image_size, plan.max_boxes,
+                     plan.mosaic, plan.mixup, plan.mosaic_prob, plan.mixup_prob, 2,
+                     plan.special_aug_ratio, seed=plan.seed)
+    pool = [to_device(a, "cuda") for a in ds.staged_pool()]
+    ds.reseed(0)
+    tile_idx, mosaic, mixup = next(ds.epoch_plans(BS, plan.shuffle, plan.drop_last))
+    draw = trainer.draw(0, tile_idx.shape[1], mosaic, mixup).to("cuda")
+    idx = to_device(tile_idx, "cuda")
+
+    def call():
+        return augment_batch_from_pool(draw, *pool, idx, cfg=trainer.aug_cfg,
+                                       max_gt=plan.max_boxes)
+
+    prof = profile_window(call)
+    return dict(mosaic=int(mosaic.sum()), mixup=int(mixup.sum()), device_ms=prof["device_ms"],
+                held_ms=cuda_ms(call, 10), host_ms=host_us(call, 10) / 1e3,
+                launches_per_call=prof.get("launches_per_call"), profile_top=prof.get("top"))
+
+
+def phase_train_run() -> dict:
+    """``Trainer.run`` of yolov7 @640 from a plan on the card: 2 epochs with
+    the device pool, then a resume from ``.last`` for a third epoch through
+    the prefetch thread. Returns the launches of every ``validate_map``."""
+    import shutil
+    import torch
+    from yolo_continuous_tpu_torch.config.plan import TrainPlan
+    from yolo_continuous_tpu_torch.train.checkpoint import train_checkpoint_path
+    from yolo_continuous_tpu_torch.train.train_loop import Trainer
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "runs", "chip_smoke_train_run")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rs = np.random.RandomState(0)
+    train_ann = write_jpeg_dataset(root, 64, rs, "train")
+    val_ann = write_jpeg_dataset(root, 16, rs, "val")
+    common = dict(train=train_ann, val=val_ann, batch_size=BS, image_size=SIZE,
+                  mosaic_prob=0.5, mixup_prob=0.5, val_map_every=1, save_dir=root + "/",
+                  save_name="train_run", seed=0)
+    total = {fn.__name__: 0 for fn in counters()}
+    records = []
+
+    def run(plan_path):
+        trainer = Trainer(TrainPlan(plan_path), device="cuda")
+        validate_map = trainer.validate_map
+
+        def counted(state, **kw):
+            torch.cuda.synchronize()
+            for fn in counters():
+                fn.launches = 0
+            summary = validate_map(state, **kw)
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in counters()}
+            for name in ("decode_outputs_cuda", "nms_suppress"):
+                if launches[name] == 0:
+                    fail(f"train_run: validate_map never launched {name}: {launches}")
+            for name, n in launches.items():
+                total[name] += n
+            records.append(dict(launches=launches, **summary))
+            return summary
+
+        trainer.validate_map = counted
+        torch.cuda.reset_peak_memory_stats()
+        logs = []
+        state = trainer.run(log=lambda line: (logs.append(line), print(line, flush=True)))
+        for st in trainer.epoch_stats:
+            print(json.dumps({"train_run_epoch": st}), flush=True)
+        return trainer, state, logs
+
+    first, state, _ = run(plan_copy(root, "plan_a.yaml", epochs=2, resume="False",
+                                    device_cache="True", **common))
+    if state["step"] != 8:
+        fail(f"train_run: {state['step']} steps after 2 epochs of 64 images at batch 16, not 8")
+    second, state, logs = run(plan_copy(root, "plan_b.yaml", epochs=3, resume="True",
+                                        device_cache="False", **common))
+    if "resumed at step 8" not in logs or not any(l.startswith("epoch 3/3 loss") for l in logs):
+        fail(f"train_run: the resume from .last did not start at step 8, epoch 3: {logs}")
+    if state["step"] != 12 or len(second.epoch_stats) != 1:
+        fail(f"train_run: the resumed run ended at step {state['step']}, not 12")
+    epochs = first.epoch_stats + second.epoch_stats
+    for st in epochs:
+        if not np.isfinite(st["loss"]):
+            fail(f"train_run: epoch {st['epoch']} loss is not finite: {st['loss']}")
+        m = st["map"]
+        if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()):
+            fail(f"train_run: epoch {st['epoch']} mAP out of [0, 1]: {m}")
+    if [st["device_cache"] for st in epochs] != [True, True, False]:
+        fail("train_run: device_cache was not on, on, off")
+    best = train_checkpoint_path(os.path.join(root, "train_run.msgpack"))
+    for path in (best, best + ".last", best + ".bestmap"):
+        if not os.path.exists(path):
+            fail(f"train_run: {path} was not written")
+    if len(records) != 3:
+        fail(f"train_run: {len(records)} validate_map calls, not one an epoch")
+    augment = augment_alone(second, train_ann)
+    print(json.dumps({"train_run": dict(
+        config="cfg/coco_train.yaml yolov7 640px bf16 body, batch 16, mosaic_prob 0.5, "
+               "mixup_prob 0.5, flip_ud 0.5, 64 train + 16 val JPEGs",
+        epochs=[dict({k: st[k] for k in ("epoch", "loss", "step_ms", "augment_ms",
+                                         "train_step_ms", "data_wait_ms", "data_wait_ms_steps",
+                                         "img_s", "seconds", "device_cache",
+                                         "max_memory_allocated")},
+                     data_wait_ms_first=st["data_wait_ms_steps"][0],
+                     data_wait_ms_later=float(np.mean(st["data_wait_ms_steps"][1:])))
+                for st in epochs],
+        validate_map=records, resumed_at_step=8, augment_alone=augment,
+        phase_s=time.perf_counter() - t_phase)}), flush=True)
+    del first, second, state
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1049,6 +1230,7 @@ def main() -> None:
     launches = phase_main()
     phase_train()
     phase_train_reference()
+    launches_validate_map = phase_train_run()
 
     meta = {
         "decode_level": ("csrc/decode.cu", "yolo_continuous_tpu/kernels/decode_pallas.py:67",
@@ -1074,6 +1256,7 @@ def main() -> None:
                                    "bound_ms_25200x2") if k in r}
         kernels.append(dict(name=name, route="cuda", source=f"yolo_continuous_tpu_torch/{src}",
                             replaces=replaces, launches=launches[counter],
+                            launches_validate_map=launches_validate_map[counter],
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], **other))

@@ -107,3 +107,99 @@ def min_bin_gap(raw, bin_count: int = 21) -> float:
         top2 = -np.sort(-s[..., off:off + bin_count], axis=-1)[..., :2]
         gaps.append(np.min(top2[..., 0] - top2[..., 1]))
     return float(min(gaps))
+
+
+def jax_batch_draw(key, cfg, B: int, T: int, max_boxes: int, mosaic, mixup):
+    """The parameters that JAX's ``augment_batch(key, ...)`` draws, with the
+    batch's flags ``mosaic`` and ``mixup``, as the port's ``BatchDraw`` (CPU
+    tensors): JAX's key splits replayed in JAX
+    (``ops/augment.py:224-231`` single, ``:274-284`` mosaic, ``:355`` and
+    ``enhance.py:118-121`` post-enhance, ``:425-428`` per sample, ``:474``
+    copy-paste). Feeding these to the port's apply step must give JAX's
+    outputs."""
+    import jax
+    import torch
+    from yolo_continuous_tpu_torch.ops.augment import (BatchDraw, MosaicDraw, SingleDraw,
+                                                       paste_boxes)
+    from yolo_continuous_tpu_torch.ops.enhance import EnhanceDraw
+
+    def u(k, lo, hi, shape=()):
+        return np.asarray(jax.random.uniform(k, shape, np.float32, lo, hi))
+
+    def jitter(k, lo, hi):
+        k1, k2, k3 = jax.random.split(k, 3)
+        j = cfg.jitter
+        return [u(k1, 1 - j, 1 + j), u(k2, 1 - j, 1 + j)], u(k3, lo, hi)
+
+    def enhance(k):
+        _, kf, ke = jax.random.split(k, 3)
+        k1, k2 = jax.random.split(kf)
+        return [float(jax.random.uniform(k1)) < 0.0, float(jax.random.uniform(k2)) < cfg.flip_ud,
+                float(jax.random.uniform(ke)) < cfg.equalize]
+
+    rec = {n: [] for n in ("ar", "scale", "dxy", "flip", "hsv", "partner", "post",
+                           "m_off", "m_ar", "m_scale", "m_flip", "m_hsv")}
+    for k in jax.random.split(key, B):
+        k1, k2, kx, kxp = jax.random.split(k, 4)
+        kg, kp, kf, kh = jax.random.split(k2, 4)
+        ar, scale = jitter(kg, cfg.scale_min, cfg.scale_max)
+        kdx, kdy = jax.random.split(kp)
+        rec["ar"].append(ar)
+        rec["scale"].append(scale)
+        rec["dxy"].append([u(kdx, 0.0, 1.0), u(kdy, 0.0, 1.0)])
+        rec["flip"].append(bool(jax.random.bernoulli(kf, cfg.flip_lr)))
+        rec["hsv"].append(u(kh, -1.0, 1.0, (3,)))
+        rec["partner"].append(enhance(kxp))
+        rec["post"].append(enhance(kx))
+        kcx, kcy, kmh, *tkeys = jax.random.split(k1, 7)
+        rec["m_off"].append([u(kcx, cfg.min_offset_lo, cfg.min_offset_hi),
+                             u(kcy, cfg.min_offset_lo, cfg.min_offset_hi)])
+        quads = []
+        for q in range(4):
+            kqg, kqf = jax.random.split(tkeys[q])
+            quads.append(jitter(kqg, cfg.mosaic_scale_min, cfg.mosaic_scale_max)
+                         + (bool(jax.random.bernoulli(kqf, cfg.flip_lr)),))
+        rec["m_ar"].append([a for a, _, _ in quads])
+        rec["m_scale"].append([s for _, s, _ in quads])
+        rec["m_flip"].append([f for _, _, f in quads])
+        rec["m_hsv"].append(u(kmh, -1.0, 1.0, (3,)))
+    paste = jax.random.bernoulli(jax.random.fold_in(key, 0x5e1f), cfg.copy_paste,
+                                 (B, paste_boxes(T, max_boxes)))
+
+    def t(name, dtype=np.float32):
+        return torch.from_numpy(np.asarray(rec[name], dtype))
+
+    def e(name):
+        return EnhanceDraw(*torch.from_numpy(np.asarray(rec[name], bool)).T)
+
+    m_draw = MosaicDraw(t("m_off"), t("m_ar"), t("m_scale"), t("m_flip", bool), t("m_hsv"))
+    return BatchDraw.of(single=SingleDraw(t("ar"), t("scale"), t("dxy"), t("flip", bool),
+                                          t("hsv")),
+                        partner=e("partner"), mosaic=m_draw if T == 4 else None, post=e("post"),
+                        paste=torch.from_numpy(np.array(paste)), mosaic_flag=mosaic,
+                        mixup_flag=mixup)
+
+
+def write_dataset(root, n: int, seed: int = 0, shapes=((48, 64), (64, 48), (64, 64), (40, 72)),
+                  max_boxes: int = 6, n_classes: int = 2, square: bool = False) -> str:
+    """``n`` JPEGs written with cv2 under ``root`` (a pathlib.Path), mixed
+    aspect ratios (``shapes``, cycled; 64 x 64 each with ``square``), 0 to
+    ``max_boxes`` boxes each, plus the annotation file. Returns its path."""
+    import cv2
+    rs = np.random.RandomState(seed)
+    lines = []
+    for i in range(n):
+        h, w = (64, 64) if square else shapes[i % len(shapes)]
+        img = rs.randint(0, 255, (h, w, 3), np.uint8)
+        img[h // 4: h // 2, w // 4: w // 2] = rs.randint(0, 255, 3)   # a flat patch
+        path = str(root / f"im{i}.jpg")
+        cv2.imwrite(path, img)
+        boxes = []
+        for _ in range(rs.randint(0, max_boxes + 1)):
+            bw, bh = rs.randint(6, w // 2), rs.randint(6, h // 2)
+            x, y = rs.randint(0, w - bw), rs.randint(0, h - bh)
+            boxes.append(f"{x},{y},{x + bw},{y + bh},{rs.randint(n_classes)}")
+        lines.append(" ".join([path] + boxes) + "\n")
+    ann = root / "train.txt"
+    ann.write_text("".join(lines))
+    return str(ann)

@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import YOLOV7_640_FUSED_TAILS, ibin_logits, min_bin_gap, tiny_plan_cfg
+from _torch_port import (YOLOV7_640_FUSED_TAILS, ibin_logits, min_bin_gap, tiny_plan_cfg,
+                         write_dataset)
 from yolo_continuous_tpu_torch.config.plan import TrainPlan
 from yolo_continuous_tpu_torch.detect_api import Detector
 from yolo_continuous_tpu_torch.kernels import bin_decode, decode
@@ -26,8 +27,11 @@ from yolo_continuous_tpu_torch.kernels.fused_conv import (form_for, fused_pointw
 from yolo_continuous_tpu_torch.kernels import nms as nms_k1k2
 from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
 from yolo_continuous_tpu_torch.nn.heads import head_view
+from yolo_continuous_tpu_torch.ops import augment as aug
+from yolo_continuous_tpu_torch.ops.enhance import equalize
 from yolo_continuous_tpu_torch.ops.decode import decode_level, decode_level_bin
 from yolo_continuous_tpu_torch.ops.nms import suppress, suppress_plain
+from yolo_continuous_tpu_torch.train.train_loop import Trainer
 
 pytestmark = pytest.mark.cuda
 ANCHORS = (((142.0, 110.0), (192.0, 243.0), (459.0, 401.0)),
@@ -557,3 +561,123 @@ def test_fused_conv_wgmma_form_where_exp_overflows(cuda):
     want = fused_pointwise_conv_plain(x, wt, scale, bias)
     assert (want == 0).float().mean() > 0.1                 # many SiLUs rounded to -0
     torch.testing.assert_close(got.float(), want.float(), rtol=8e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the data path on the card: augmentation, the device pool, Trainer.run
+# ---------------------------------------------------------------------------
+
+def _aug_inputs(B, T, S=64, MB=8, seed=0):
+    rs = np.random.RandomState(seed)
+    tiles = rs.randint(0, 255, (B, T, S, S, 3)).astype(np.uint8)
+    metas = np.zeros((B, T, 5), np.float32)
+    boxes = np.zeros((B, T, MB, 5), np.float32)
+    masks = np.zeros((B, T, MB), bool)
+    for b in range(B):
+        for t in range(T):
+            iw, ih = rs.randint(30, 100), rs.randint(30, 100)
+            r = min(S / iw, S / ih)
+            metas[b, t] = [iw, ih, r, (S - int(iw * r)) // 2, (S - int(ih * r)) // 2]
+            for i in range(rs.randint(0, 7)):
+                bw, bh = rs.uniform(6, iw / 2), rs.uniform(6, ih / 2)
+                x, y = rs.uniform(0, iw - bw), rs.uniform(0, ih - bh)
+                boxes[b, t, i] = [x, y, x + bw, y + bh, rs.randint(3)]
+                masks[b, t, i] = True
+    return [torch.from_numpy(a) for a in (tiles, metas, boxes, masks)]
+
+
+@pytest.mark.parametrize("T,extra", [(1, {}), (4, {}), (4, dict(copy_paste=0.5, flip_ud=0.5))])
+def test_augment_on_the_card_matches_the_cpu(cuda, T, extra):
+    """One parameter record, applied on the card and on the CPU: images
+    within 1e-4 on 0..1 (the warps' sums in another order), boxes within
+    1e-4 px, masks equal."""
+    cfg = aug.AugConfig(size=64, **extra)
+    inputs = _aug_inputs(4, T)
+    mosaic, mixup = np.array([True, False, True, True]), np.array([True, True, False, True])
+    draw = aug.draw_batch(torch.Generator().manual_seed(1), cfg, 4, T, 8, mosaic, mixup)
+    want = aug.augment_batch(draw, *inputs, cfg=cfg, max_gt=24)
+    got = aug.augment_batch(draw.to(cuda), *(a.to(cuda) for a in inputs), cfg=cfg, max_gt=24)
+    assert got[0].device.type == cuda.type
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=1e-4 / 64)
+    assert torch.equal(got[2].cpu(), want[2]) and want[2].any()
+
+
+def test_augment_enqueues_without_a_host_sync(cuda):
+    """From host arrays to labels, with every op on: nothing in the
+    augmentation makes the host wait for the card (the Trainer syncs once
+    an epoch)."""
+    cfg = aug.AugConfig(size=64, copy_paste=0.5, flip_ud=0.5, equalize=0.5)
+    inputs = [a.numpy() for a in _aug_inputs(4, 4)]
+    mosaic, mixup = np.array([True, False, True, True]), np.array([True, True, False, True])
+    draw = aug.draw_batch(torch.Generator().manual_seed(5), cfg, 4, 4, 8, mosaic, mixup)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = aug.augment_batch(draw.to(cuda), *(aug.to_device(a, cuda) for a in inputs),
+                                cfg=cfg, max_gt=24)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out[0].device.type == cuda.type and torch.isfinite(out[0]).all()
+
+
+def test_equalize_on_the_card_is_exact(cuda):
+    img = torch.from_numpy(np.random.RandomState(2).rand(3, 32, 24, 3).astype(np.float32) * 255)
+    img = torch.round(img)
+    assert torch.equal(equalize(img.to(cuda)).cpu(), equalize(img))
+
+
+def test_pool_staged_on_the_card(cuda):
+    """The pool on the card: a gather of (B, T) indices gives the
+    host-assembled batch's outputs bit for bit."""
+    pool = [a[:, 0] for a in _aug_inputs(6, 1, seed=3)]
+    tile_idx = torch.tensor([[0, 3, 5, 1], [2, 2, 2, 2], [4, 0, 1, 5]], dtype=torch.int32)
+    mosaic, mixup = np.array([True, False, True]), np.array([True, True, False])
+    cfg = aug.AugConfig(size=64)
+    draw = aug.draw_batch(torch.Generator().manual_seed(4), cfg, 3, 4, 8, mosaic, mixup).to(cuda)
+    got = aug.augment_batch_from_pool(draw, *(a.to(cuda) for a in pool), tile_idx.to(cuda),
+                                      cfg=cfg, max_gt=16)
+    host = aug.augment_batch(draw, *(a[tile_idx.long()].to(cuda) for a in pool), cfg=cfg,
+                             max_gt=16)
+    for g, h in zip(got, host):
+        assert g.device.type == cuda.type and torch.equal(g, h)
+
+
+def test_trainer_run_and_resume_on_the_card(cuda, tmp_path):
+    """Trainer.run on the card, 2 epochs of the tiny IAuxDetect net with the
+    real augmentation; then a run killed after epoch 1 and resumed. The
+    resumed run must retrace the epoch lines to 4 decimals and end within
+    1e-3 (relative L2) of the uninterrupted weights; whether it is bit-equal
+    (cuDNN may pick another backward algorithm) is printed, not required."""
+    pytest.importorskip("cv2")
+    ann = write_dataset(tmp_path, 6, seed=5)
+    cfg = tiny_plan_cfg("IAuxDetect", 64)
+    cfg.update(train=ann, val=ann, epochs=2, save_dir=str(tmp_path / "a"), save_name="t",
+               resume=False, enhance=True, mosaic_prob=0.7, mixup_prob=0.5, val_map_every=1)
+    logs_a = []
+    state_a = Trainer(TrainPlan(dict(cfg)), device="cuda").run(log=logs_a.append)
+    assert state_a["step"] == 6 and any("val mAP" in l for l in logs_a)
+
+    class Killed(Exception):
+        pass
+
+    def killer(line):
+        if line.startswith("epoch 2/2 loss"):
+            raise Killed
+
+    cfg["save_dir"] = str(tmp_path / "b")
+    with pytest.raises(Killed):
+        Trainer(TrainPlan(dict(cfg)), device="cuda").run(log=killer)
+    cfg["resume"] = True
+    logs_b = []
+    state_b = Trainer(TrainPlan(dict(cfg)), device="cuda").run(log=logs_b.append)
+    assert "resumed at step 3" in logs_b
+    strip = lambda ls: [" ".join(l.split()[:6]) for l in ls if l.startswith("epoch 2/2 loss")]
+    assert strip(logs_b) == strip(logs_a)
+    a, b = state_a["model"].state_dict(), state_b["model"].state_dict()
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in a
+              if a[k].is_floating_point())
+    den = sum(float((a[k].double() ** 2).sum()) for k in a if a[k].is_floating_point())
+    print("resume on the card bit-equal:", all(torch.equal(a[k], b[k]) for k in a),
+          "relative L2", (num / den) ** 0.5)
+    assert (num / den) ** 0.5 <= 1e-3

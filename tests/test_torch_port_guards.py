@@ -30,6 +30,9 @@ def _imported_roots(path: Path):
 def test_every_port_module_is_scanned():
     assert len(FILES) > 15 and "yolo_continuous_tpu_torch/detect_api.py" in FILES
     assert "yolo_continuous_tpu_torch/train/train_loop.py" in FILES
+    for rel in ("data/dataset.py", "ops/augment.py", "ops/enhance.py",
+                "eval/evaluator.py", "eval/validate.py", "train/__main__.py", "val.py"):
+        assert f"yolo_continuous_tpu_torch/{rel}" in FILES
 
 
 @pytest.mark.parametrize("rel", FILES)
@@ -47,6 +50,11 @@ import yolo_continuous_tpu_torch.kernels.decode, yolo_continuous_tpu_torch.kerne
 import yolo_continuous_tpu_torch.kernels.bin_decode, yolo_continuous_tpu_torch.kernels.fused_conv
 import yolo_continuous_tpu_torch.ops.sigmoid_bin, yolo_continuous_tpu_torch.ops.schedules
 import yolo_continuous_tpu_torch.train.train_loop, yolo_continuous_tpu_torch.train.checkpoint
+import yolo_continuous_tpu_torch.train.__main__, yolo_continuous_tpu_torch.val
+import yolo_continuous_tpu_torch.data.dataset
+import yolo_continuous_tpu_torch.ops.augment, yolo_continuous_tpu_torch.ops.enhance
+import yolo_continuous_tpu_torch.ops.preprocess
+import yolo_continuous_tpu_torch.eval.evaluator, yolo_continuous_tpu_torch.eval.validate
 import torch
 from yolo_continuous_tpu_torch.kernels import _build
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r} or m == "triton")

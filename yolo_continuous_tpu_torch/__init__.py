@@ -9,8 +9,9 @@ Every Pallas kernel of the ported path is a hand-written CUDA kernel for
 Hopper (``csrc/*.cu``, built by ``kernels/_build.py`` at first use). Each
 kernel has a plain PyTorch version of the same function; a wrapper uses it
 only for tensors on the CPU, and launches the kernel (or raises) for CUDA
-tensors. Entry points (``Detector``, ``predict``, the ``detect`` CLI) run
-on ``cuda`` unless the caller passes ``device="cpu"``.
+tensors. Entry points (``Detector``, ``predict``, ``Trainer``, ``validate``,
+the ``detect``, ``train`` and ``val`` CLIs) run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
