@@ -74,15 +74,40 @@ failure exits non-zero before the result line.
    one batch's augmentation from the pool, timed alone: the profiler's
    summed kernel time, CUDA events with the stream held, and the host's
    enqueue time.
+7. model_zoo: the rest of the model side, seeded random weights, on the card.
+   (p6_lite) ``cfg/net/yolov7-p6-lite.yaml`` in a copy of the flagship plan
+   with the upstream P6 anchors and mask, 1280 px: requests at batch 16 (bf16
+   body, conf 0.25, IoU 0.45, max_det 300), counters set to 0 around each,
+   every one launching K3 once in its TMA form over the 4 levels and K1;
+   K3 at that shape against its strided form (bit-equal), the plain version
+   and its byte bound; stage times and peak memory. Train steps at batch 8,
+   max_boxes 64 (the IAuxDetect aux loss at 4 levels): 1 + 5. (ibin_train)
+   yolov7 with an IBin head at 640, batch 16, 1 + 5 ``Trainer.train_step``
+   through ``bin_yolo_loss``; then a Detector on its EMA weights serves one
+   request, which must launch K4 once in its TMA form. (fuse) yolov7 @640
+   batch 16: ``Detector(fuse=True)`` against the unfused Detector on the same
+   weights in fp32 (maps, rows and detections within 2e-3), both timed in
+   bf16 in turns; ``fuse=True, fused_tails=True`` launches K5 24 times a
+   request. (head_bf16) ``head_dtype=torch.bfloat16``: K3 once a request
+   (its maps cast to fp32 keep the TMA form), the request time, and the
+   keep-set entries that differ from the fp32 head. (reload)
+   ``reload_weights`` on a running Detector, with and without ``fuse``: the
+   next request equals a fresh Detector on the same checkpoint bit for bit;
+   a missing path returns False. (zoo) every chained group of the zoo's rows
+   (the groups of ``tests/_torch_port.py``), the multi-input and repeat nets
+   and YoloBody 'l' and 'x' at 64 px on the card against the CPU in fp32
+   (maps within 1e-4); one timed forward of YoloBody 'x' at 640, batch 16,
+   bf16.
 
 Kernel times are device times: ``cuda_ms`` holds the stream with a sleep
 kernel while the host enqueues the timed calls, so that a kernel shorter
 than its wrapper's host time is not timed at the host's pace.
 
 Before the last line it prints the ``kernels`` JSON line (time, bound,
-error of each kernel; ``launches`` on phase 4's main paths and
-``launches_validate_map`` on phase 6's ``validate_map`` calls) and the
-card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
+error of each kernel; ``launches`` on phase 4's main paths,
+``launches_validate_map`` on phase 6's ``validate_map`` calls and
+``launches_model_zoo`` on phase 7's counted requests; K3's 4-level time and
+bound at the P6 shape) and the card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 import copy
 import json
@@ -107,6 +132,7 @@ BIN_GAP = 1e-5      # K4 precondition: top two sigmoided bins of every value thi
 # across a bf16 boundary); fp32 within fp32 summation-order error
 K5_TOL = {"bf16": dict(rtol=8e-3, atol=1e-3), "fp32": dict(rtol=1e-5, atol=1e-4)}
 BS, SIZE, CONF, IOU = 16, 640, 0.25, 0.45
+ANCHOR_ROWS = [[12, 16, 19, 36, 40, 28], [36, 75, 76, 55, 72, 146], [142, 110, 192, 243, 459, 401]]
 # one train step, card against CPU (fp32): the tolerances of
 # tests/test_torch_port_train.py, set by the summation order of train-mode
 # BN statistics amplified with depth (PERF.md)
@@ -617,18 +643,27 @@ def reference_pair(model_cfg=None, fused_tails=False):
     plan = random_weights_plan(model_cfg)
     plan.image_size = 64
     cpu = Detector(plan, device="cpu", dtype=torch.float32, seed=1, fused_tails=fused_tails)
-    gen = torch.Generator().manual_seed(1)
+    spread_weights(cpu.model.state_dict(), 1)
+    gpu = Detector(plan, device="cuda", dtype=torch.float32, state_dict=cpu.model.state_dict(),
+                   fused_tails=fused_tails)
+    return cpu, gpu
+
+
+def spread_weights(state_dict, seed: int) -> dict:
+    """Redraw a state dict in place from ``seed`` at a scale that keeps
+    activations O(1) through the depth: conv weights of fan-in n ~ N(0, 1/n),
+    biases and running means ~ 0.1 N(0, 1), running variances U(0.5, 1.5)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for name, t in cpu.model.state_dict().items():
+        for name, t in state_dict.items():
             if name.endswith("weight") and t.dim() == 4:
                 t.normal_(0.0, (1.0 / t[0].numel()) ** 0.5, generator=gen)
             elif name.endswith(("running_mean", "bias")):
                 t.normal_(0.0, 0.1, generator=gen)
             elif name.endswith("running_var"):
                 t.uniform_(0.5, 1.5, generator=gen)
-    gpu = Detector(plan, device="cuda", dtype=torch.float32, state_dict=cpu.model.state_dict(),
-                   fused_tails=fused_tails)
-    return cpu, gpu
+    return state_dict
 
 
 def check_maps(what, maps_c, maps_g, n):
@@ -994,15 +1029,7 @@ def phase_train_reference():
     cpu = Trainer(plan, device="cpu", dtype=torch.float32)
     gpu = Trainer(plan, device="cuda", dtype=torch.float32)
     sd = {k: v.clone() for k, v in cpu.init_state(seed=0)["model"].state_dict().items()}
-    gen = torch.Generator().manual_seed(1)
-    with torch.no_grad():            # O(1) activations through the depth, as reference_pair
-        for name, t in sd.items():
-            if name.endswith("weight") and t.dim() == 4:
-                t.normal_(0.0, (1.0 / t[0].numel()) ** 0.5, generator=gen)
-            elif name.endswith(("running_mean", "bias")):
-                t.normal_(0.0, 0.1, generator=gen)
-            elif name.endswith("running_var"):
-                t.uniform_(0.5, 1.5, generator=gen)
+    spread_weights(sd, 1)            # O(1) activations through the depth, as reference_pair
     rs = np.random.RandomState(2)
     images, labels, lmask = train_inputs(rs, 2, 128, 8, "cpu")
     labels[1, 2] = torch.tensor([7, 0.7, 0.6, 0.3, 0.35])
@@ -1195,6 +1222,503 @@ def phase_train_run() -> dict:
     torch.cuda.empty_cache()
     return total
 
+# ---------------------------------------------------------------- phase 7
+
+# tests/_torch_port.py's ZOO_BLOCKS (tests/test_zoo_coverage.py's
+# SINGLE_INPUT_BLOCKS), ZOO_GROUPS and ZOO_NETS, copied (this script imports
+# no test code; tests/test_torch_port_zoo_b.py holds the copies equal)
+ZOO_BLOCKS = [
+    ("Conv", [16, 3, 1]), ("Conv", [16, 3, 1, None, 1, "nn.LeakyReLU(0.1)"]),
+    ("nn.Conv2d", [16, 3, 1]), ("dw_conv", [16, 3, 1]), ("GhostConv", [16, 3, 1]),
+    ("RobustConv", [16, 7, 1]), ("RobustConv2", [16, 7, 2]), ("RepConv", [16, 3, 1]),
+    ("DownC", [16]), ("SPP", [16]), ("SPPF", [16]), ("SPPCSPC", [16]), ("GhostSPPCSPC", [16]),
+    ("Focus", [16, 3]), ("Stem", [16]), ("GhostStem", [16]), ("Bottleneck", [16]),
+    ("BottleneckCSPA", [16]), ("BottleneckCSPB", [16]), ("BottleneckCSPC", [16]),
+    ("RepBottleneck", [16]), ("RepBottleneckCSPA", [16]), ("RepBottleneckCSPB", [16]),
+    ("RepBottleneckCSPC", [16]), ("Res", [16]), ("ResCSPA", [16]), ("ResCSPB", [16]),
+    ("ResCSPC", [16]), ("RepRes", [16]), ("RepResCSPA", [16]), ("RepResCSPB", [16]),
+    ("RepResCSPC", [16]), ("ResX", [64, True, 8]), ("ResXCSPA", [64, True, 8]),
+    ("ResXCSPB", [64, True, 8]), ("ResXCSPC", [64, True, 8]), ("RepResX", [64, True, 8]),
+    ("RepResXCSPA", [64, True, 8]), ("RepResXCSPB", [64, True, 8]),
+    ("RepResXCSPC", [64, True, 8]), ("Ghost", [16]), ("GhostCSPA", [16]), ("GhostCSPB", [16]),
+    ("GhostCSPC", [16]), ("MP", []), ("SP", [3]), ("ReOrg", []), ("Foldcut", []),
+    ("Contract", [2]), ("Expand", [2]), ("nn.BatchNorm2d", []),
+]
+ZOO_GROUPS = {
+    "conv": (64, range(0, 8), [["Conv", [16, 3, 1, None, 1, "nn.ReLU()"]],
+                               ["Conv", [16, 1, 1, None, 1, "nn.Hardswish()"]],
+                               ["Conv", [16, 3, 1, None, 1, "nn.Identity()"]],
+                               ["Conv", [16, 1, 1, None, 1, "nn.SiLU()"]]]),
+    "spp": (64, range(8, 13), []),
+    "stems": (512, range(13, 16), []),
+    "bottleneck": (64, range(16, 24), []),
+    "res": (64, range(24, 32), []),
+    "resx": (64, range(32, 40), []),
+    "ghost": (64, list(range(40, 46)) + [50], [["ImplicitA", []], ["ImplicitM", []],
+                                                 ["TransformerBlock", [16, 16, 4, 2]]]),
+    "reshape": (64, range(46, 50), []),
+}
+ZOO_NETS = {
+    "multi_input": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "Conv", [16, 3, 1]],
+                    [[-1, -2], 1, "Concat", [1]], [[-1, -2], 1, "Chuncat", [1]],
+                    [-1, 1, "Conv", [16, 1, 1]], [[-1, 1], 1, "Shortcut", [0]]],
+    "repeat": [[-1, 1, "Conv", [16, 3, 2]], [-1, 2, "Bottleneck", [16]],
+               [-1, 2, "BottleneckCSPA", [16]]],
+}
+# the upstream yolov7 P6 anchors (yolov7-w6) and their mask, as
+# tests/test_p6_model.py:15-16, 22
+P6_ANCHORS = [[19, 27, 44, 40, 38, 94], [96, 68, 86, 152, 180, 137],
+              [140, 301, 303, 264, 238, 542], [436, 615, 739, 380, 925, 792]]
+P6_MASK = [[9, 10, 11], [6, 7, 8], [3, 4, 5], [0, 1, 2]]
+P6_SIZE, P6_TRAIN_BS = 1280, 8
+FUSE_TOL = 2e-3             # tests/test_fuse.py's atol for the fused against the train form
+ZOO_TOL = 1e-4              # card against CPU, fp32, maps
+IBIN_CONF = 0.01            # six steps from random weights score under 0.25
+
+
+def zoo_net(group: str):
+    """(net dict, input size) of a ZOO_GROUPS group (after a 16-channel /2
+    stem conv) or a ZOO_NETS net, before a 3-level Detect head."""
+    head = [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "Conv", [32, 3, 2]],
+            [[-3, -2, -1], 1, "Detect", ["nc", "anchors"]]]
+    if group in ZOO_NETS:
+        rows, size = [list(r) for r in ZOO_NETS[group]], 64
+    else:
+        size, idx, extra = ZOO_GROUPS[group]
+        rows = [[-1, 1, "Conv", [16, 3, 2]]] + [[-1, 1, n, list(a)] for n, a in
+                                                 [ZOO_BLOCKS[i] for i in idx] + extra]
+    return {"depth_multiple": 1.0, "width_multiple": 1.0, "backbone": rows, "head": head}, size
+
+
+def p6_plan():
+    """The flagship plan with yolov7-p6-lite, the P6 anchors and mask, 1280 px."""
+    plan = random_weights_plan("cfg/net/yolov7-p6-lite.yaml")
+    plan.anchors, plan.anchors_mask, plan.image_size = P6_ANCHORS, P6_MASK, P6_SIZE
+    return plan
+
+
+def counted(label, fn, want: dict):
+    """Counters to 0, ``fn()``, counters read; every kernel named in ``want``
+    must have launched exactly that often (None: at least once)."""
+    import torch
+    torch.cuda.synchronize()
+    for k in counters():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters()}
+    for name, n in want.items():
+        if (n is None and launches[name] == 0) or (n is not None and launches[name] != n):
+            fail(f"{label}: {name} launched {launches[name]} times, not {n or 'at least once'} "
+                 f"({launches})")
+    return out, launches
+
+
+def check_request(label, out, nc, bs, conf=CONF):
+    import torch
+    boxes, scores, classes, valid = out
+    if boxes.shape != (bs, 300, 4) or not (torch.isfinite(boxes).all() and
+                                           torch.isfinite(scores).all()):
+        fail(f"{label}: output {tuple(boxes.shape)} not finite or not (bs, 300, 4)")
+    if bool((scores[valid] < conf).any()) or bool((classes[valid] >= nc).any()):
+        fail(f"{label}: a detection under the threshold or of an unknown class")
+
+
+def timed_steps(trainer, state, inputs, n: int = 5):
+    """1 warm-up step and ``n`` timed ones (host clock around each, then a
+    synchronise); fails unless every loss is finite and num_fg > 0, and the
+    parameters and the EMA moved."""
+    import torch
+    before = flat_state(state)
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        return trainer.train_step(state, *inputs, 0.01, 0.1, 0.937)[1]
+
+    parts = [step()]
+    torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        parts.append(step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    parts = [{k: float(v) for k, v in p.items()} for p in parts]
+    for i, p in enumerate(parts):
+        if not all(np.isfinite(v) for v in p.values()) or not p["num_fg"] > 0:
+            fail(f"train step {i}: a loss is not finite or num_fg is 0: {p}")
+    after = flat_state(state)
+    moved = {part: max((after[k].float() - before[k].float()).abs().max().item()
+                       for k in before if k.startswith(part + ".") and before[k].is_floating_point())
+             for part in ("model", "ema")}
+    if not (moved["model"] > 0 and moved["ema"] > 0):
+        fail(f"train: the parameters or the EMA did not move: {moved}")
+    bs = inputs[0].shape[0]
+    return dict(steps=n, step_ms_median=float(np.median(step_ms)), step_ms=step_ms,
+                img_s=bs / float(np.median(step_ms)) * 1e3, max_memory_allocated_gb=peak / 2 ** 30,
+                first=parts[0], last=parts[-1], num_fg=parts[-1]["num_fg"], moved=moved)
+
+
+def p6_requests(total) -> dict:
+    """yolov7-p6-lite @1280, batch 16: K3 at its 4-level shape, then requests
+    counted one by one, stage times, peak memory."""
+    import torch
+    from yolo_continuous_tpu_torch.detect_api import Detector
+    from yolo_continuous_tpu_torch.kernels.decode import form_for, launch_form
+    from yolo_continuous_tpu_torch.ops.decode import decode_level, decode_outputs
+
+    det = Detector(p6_plan(), device="cuda", seed=0)
+    spec = det.spec
+    rs = np.random.RandomState(7)
+    images = torch.from_numpy(rs.rand(BS, P6_SIZE, P6_SIZE, 3).astype("float32")).cuda()
+    with torch.inference_mode():
+        maps = det.forward(images)
+    if len(maps) != 4 or form_for(maps) != "tma":
+        fail(f"p6_lite: {len(maps)} head maps in the {form_for(maps)} form, not 4 in tma")
+
+    def kernel(normalized=True, form="tma"):
+        return launch_form(maps, spec.anchors, spec.strides, normalized, form)
+
+    def plain(normalized=True):
+        return torch.cat([decode_level(m, torch.tensor(a), float(s), normalized)
+                          for m, a, s in zip(maps, spec.anchors, spec.strides)], 1)
+
+    got, want = kernel(), plain()
+    err = (got - want).abs().max().item()
+    if not (got.shape == want.shape and err <= DECODE_TOL):
+        fail(f"K3 at 4 levels: max abs err {err} > {DECODE_TOL} (shape {tuple(got.shape)})")
+    if not torch.allclose(kernel(False), plain(False), rtol=1e-5, atol=1e-4):
+        fail("K3 at 4 levels (pixel mode) disagrees with the plain version")
+    check_forms("K3 decode at 4 levels", kernel, maps)
+    rows, no = got.shape[1], got.shape[2]
+    k3 = dict(shape=[BS, rows, no], levels=[list(m.shape[1:3]) for m in maps], max_abs_err=err,
+              ms=cuda_ms(kernel), strided_ms=cuda_ms(lambda: kernel(True, "strided")),
+              plain_ms=cuda_ms(plain), bound_ms=2 * BS * rows * no * 4 / HBM_BYTES_S * 1e3,
+              bound_by="bytes")
+    print(json.dumps({"k3_p6_levels": k3}), flush=True)
+    del maps, got, want
+
+    with torch.inference_mode():
+        det(images, CONF, IOU, 300)                 # warm cuDNN before the counted requests
+        torch.cuda.reset_peak_memory_stats()
+        for r in range(3):
+            out, launches = counted(f"p6_lite request {r}", lambda: det(images, CONF, IOU, 300),
+                                    {"decode_outputs_cuda": 1, "nms_suppress": 1,
+                                     "nms_suppress_tiled": 0, "decode_outputs_bin_cuda": 0,
+                                     "fused_pointwise_conv_cuda": 0})
+            check_request("p6_lite", out, spec.nc, BS)
+            for k, n in launches.items():
+                total[k] += n
+        peak = torch.cuda.max_memory_allocated()
+    stages = stage_times(det, images, lambda m: decode_outputs(m, spec.anchors, spec.strides))
+    rec = dict(config=f"cfg/coco_train.yaml yolov7-p6-lite {P6_SIZE}px bf16, P6 anchors",
+               head=spec.head_name, strides=list(spec.strides), batch=BS, conf=CONF, iou=IOU,
+               max_det=300, requests_counted=3, kept_per_image=float(out[3].sum()) / BS,
+               max_memory_allocated_gb=peak / 2 ** 30, k3_ms=k3["ms"],
+               k3_bound_ms=k3["bound_ms"], **stages)
+    print(json.dumps({"p6_lite_requests": rec}), flush=True)
+    del det, images
+    torch.cuda.empty_cache()
+    return k3
+
+
+def p6_train() -> dict:
+    import torch
+    from yolo_continuous_tpu_torch.train.train_loop import Trainer
+    plan = p6_plan()
+    plan.batch_size, plan.max_boxes = P6_TRAIN_BS, 64
+    plan.save_path = os.path.join(HERE, "runs", "chip_smoke_p6.msgpack")
+    trainer = Trainer(plan, device="cuda")
+    if trainer.nl != 4 or trainer.spec.head_name != "IAuxDetect":
+        fail(f"p6_lite train: {trainer.nl} levels, head {trainer.spec.head_name}")
+    state = trainer.init_state(seed=0)
+    inputs = train_inputs(np.random.RandomState(0), P6_TRAIN_BS, P6_SIZE, 64, "cuda")
+    rec = dict(config=f"yolov7-p6-lite {P6_SIZE}px bf16 body, IAuxDetect aux loss at 4 levels",
+               batch=P6_TRAIN_BS, max_boxes=64, **timed_steps(trainer, state, inputs))
+    print(json.dumps({"p6_lite_train_step": rec}), flush=True)
+    del trainer, state, inputs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ibin_train(total) -> dict:
+    """yolov7-IBin @640 trained 1 + 5 steps through bin_yolo_loss, then served
+    from its EMA weights: one request, K4 once in its TMA form."""
+    import torch
+    from yolo_continuous_tpu_torch.config.plan import TrainPlan
+    from yolo_continuous_tpu_torch.detect_api import Detector
+    from yolo_continuous_tpu_torch.kernels.bin_decode import form_for as bin_form_for
+    from yolo_continuous_tpu_torch.train.checkpoint import serving_state_dict
+    from yolo_continuous_tpu_torch.train.train_loop import Trainer
+    plan = TrainPlan("cfg/coco_train.yaml")
+    plan.model_cfg = ibin_net()
+    plan.image_size, plan.batch_size, plan.max_boxes = SIZE, BS, 64
+    plan.save_path = os.path.join(HERE, "runs", "chip_smoke_ibin.msgpack")
+    trainer = Trainer(plan, device="cuda")
+    state = trainer.init_state(seed=0)
+    inputs = train_inputs(np.random.RandomState(0), BS, SIZE, 64, "cuda")
+    rec = timed_steps(trainer, state, inputs)
+    if "bin" not in rec["last"]:
+        fail("ibin_train: the step did not go through bin_yolo_loss")
+    weights = serving_state_dict({"model": state["model"].state_dict(),
+                                  "ema": state["ema"].state_dict()})
+    det = Detector(random_weights_plan(ibin_net()), device="cuda", state_dict=weights)
+    images = inputs[0]
+    with torch.inference_mode():
+        if bin_form_for(det.forward(images), det.spec.bin_count) != "tma":
+            fail("ibin_train: the trained model's maps do not take K4's TMA form")
+        det(images, IBIN_CONF, IOU, 300)
+        out, launches = counted("ibin_train request", lambda: det(images, IBIN_CONF, IOU, 300),
+                                {"decode_outputs_bin_cuda": 1, "nms_suppress": None,
+                                 "decode_outputs_cuda": 0})
+    check_request("ibin_train", out, det.spec.nc, BS, IBIN_CONF)
+    if not bool(out[3].any()):
+        fail("ibin_train: the request served from the EMA weights kept nothing")
+    for k, n in launches.items():
+        total[k] += n
+    rec = dict(config="cfg/coco_train.yaml yolov7-IBin 640px bf16 body", batch=BS,
+               max_boxes=64, served_from="EMA", request_conf=IBIN_CONF, request_launches=launches,
+               kept_per_image=float(out[3].sum()) / BS, **rec)
+    print(json.dumps({"ibin_train_step": rec}), flush=True)
+    del trainer, state, det, inputs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def keep_set_difference(out_a, out_b, iou: float = 0.9) -> int:
+    """Detections of either request with no detection of the same class at
+    IoU >= ``iou`` in the other's keep-set of the same image, over the batch."""
+    from yolo_continuous_tpu_torch.ops.boxes import box_iou
+    total = 0
+    for b in range(out_a[0].shape[0]):
+        (ba, ca), (bb, cb) = ((o[0][b][o[3][b]], o[2][b][o[3][b]]) for o in (out_a, out_b))
+        hit = (box_iou(ba[None], bb[None])[0] >= iou) & (ca[:, None] == cb[None, :])
+        total += int((~hit.any(1)).sum()) + int((~hit.any(0)).sum())
+    return total
+
+
+def gap_and_drift(pred_a, pred_b, k: int):
+    """The smallest gap between neighbouring top-(k+1) scores of ``pred_a``
+    above the threshold, and the largest score difference of the two: top-k
+    ranks alike when the gap exceeds twice the drift."""
+    import torch
+    sa = pred_a[..., 4] * pred_a[..., 5:].amax(-1)
+    sb = pred_b[..., 4] * pred_b[..., 5:].amax(-1)
+    top = torch.where(sa >= CONF, sa, -1.0).topk(min(k + 1, sa.shape[-1]), dim=-1).values.double()
+    return (top[..., :-1] - top[..., 1:]).min().item(), (sa - sb).abs().max().item()
+
+
+def fuse_and_head(total, images) -> dict:
+    """(fuse) and (head_bf16) of phase 7 on yolov7 @640, batch 16."""
+    import torch
+    from yolo_continuous_tpu_torch.config.plan import cvt_cfg
+    from yolo_continuous_tpu_torch.detect_api import Detector
+    from yolo_continuous_tpu_torch.kernels.decode import form_for
+    from yolo_continuous_tpu_torch.nn.builder import YoloModel, build_model_spec
+    from yolo_continuous_tpu_torch.ops.decode import decode_outputs
+    from yolo_continuous_tpu_torch.ops.nms import top_candidates
+    plan = random_weights_plan()
+    spec = build_model_spec(cvt_cfg(plan.model_cfg), plan.image_chan, plan.anchors,
+                            plan.num_labels, plan.anchors_mask)
+    sd = spread_weights(YoloModel(spec).state_dict(), 3)
+
+    # fp32: the fused form against the train form on the same weights
+    plain = Detector(plan, device="cuda", dtype=torch.float32, state_dict=sd)
+    fused = Detector(plan, device="cuda", dtype=torch.float32, state_dict=sd, fuse=True)
+    left = [k for k in fused.model.state_dict() if ".rbr_dense" in k or ".rbr_1x1" in k
+            or ".rbr_identity" in k]
+    if left or not any(".rbr_reparam." in k for k in fused.model.state_dict()):
+        fail(f"fuse: train-form RepConv keys remain: {left[:3]}")
+    with torch.inference_mode():
+        mp_, mf = plain.forward(images), fused.forward(images)
+        map_err = max((a - b).abs().max().item() for a, b in zip(mp_, mf))
+        pp, pf = (decode_outputs(m, spec.anchors, spec.strides) for m in (mp_, mf))
+        row_err = (pp - pf).abs().max().item()
+        gap, drift = gap_and_drift(pp, pf, 300)
+        a, b = plain(images, CONF, IOU, 300), fused(images, CONF, IOU, 300)
+    if not (map_err <= FUSE_TOL and row_err <= FUSE_TOL):
+        fail(f"fuse fp32: maps differ by {map_err}, rows by {row_err} (tol {FUSE_TOL})")
+    va, vb = a[3], b[3]
+    with torch.inference_mode():     # the NMS input, sorted: blind to the order of ties
+        k = min(300, pp.shape[1])
+        top_err = (top_candidates(pp, CONF, k)[1] - top_candidates(pf, CONF, k)[1]).abs().max().item()
+    if not top_err <= FUSE_TOL:
+        fail(f"fuse fp32: the top-300 candidates' scores differ by {top_err} (tol {FUSE_TOL})")
+    if gap > 2 * drift:     # no reordering possible: the detections match one by one
+        ok = (torch.equal(va, vb) and (a[0][va] - b[0][va]).abs().max().item() <= FUSE_TOL
+              and (a[1][va] - b[1][va]).abs().max().item() <= FUSE_TOL
+              and torch.equal(a[2][va], b[2][va]))
+        if not ok:
+            fail("fuse fp32: detections differ from the unfused Detector's")
+        how = "one by one"
+    else:                   # greedy NMS may take tied scores in either order
+        how = ("not one by one: scores tie within twice the drift among the top 301, so greedy "
+               "NMS may order them either way; keep-set difference reported")
+    del plain, fused, mp_, mf, pp, pf
+    fp32 = dict(map_max_abs_err=map_err, row_max_abs_err=row_err, top300_score_max_abs_err=top_err,
+                tol=FUSE_TOL, score_gap=gap, score_drift=drift, detections_compared=how,
+                kept=[int(va.sum()), int(vb.sum())], keep_set_difference=keep_set_difference(a, b))
+
+    # bf16: request times in turns; fused tails on the fused form
+    dets = {"unfused": Detector(plan, device="cuda", state_dict=sd),
+            "fused": Detector(plan, device="cuda", state_dict=sd, fuse=True)}
+    turns = {k: [] for k in dets}
+    with torch.inference_mode():
+        for r in range(4):
+            for k in (list(dets) if r % 2 == 0 else list(dets)[::-1]):
+                d = dets[k]
+                turns[k].append(cuda_ms(lambda: d(images, CONF, IOU, 300), iters=10, warmup=2,
+                                        hold=False))
+    tails = Detector(plan, device="cuda", state_dict=sd, fuse=True, fused_tails=True)
+    with torch.inference_mode():
+        tails(images, CONF, IOU, 300)
+        out, launches = counted("fuse + fused_tails", lambda: [tails(images, CONF, IOU, 300)
+                                                               for _ in range(3)],
+                                {"fused_pointwise_conv_cuda": 72, "decode_outputs_cuda": 3,
+                                 "nms_suppress": None})
+    check_request("fuse + fused_tails", out[-1], tails.spec.nc, BS)
+    for k, n in launches.items():
+        total[k] += n
+    fuse_rec = dict(config="cfg/coco_train.yaml yolov7 640px", batch=BS, fp32=fp32,
+                    bf16_request_ms={k: dict(median=float(np.median(v)), turns=v)
+                                     for k, v in turns.items()},
+                    fused_tails_launches_3_requests=launches)
+    print(json.dumps({"fuse": fuse_rec}), flush=True)
+    del dets, tails
+
+    # head_dtype bf16 against the fp32 head, bf16 body, same weights
+    head32 = Detector(plan, device="cuda", state_dict=sd)
+    head16 = Detector(plan, device="cuda", state_dict=sd, head_dtype=torch.bfloat16)
+    with torch.inference_mode():
+        maps = head16.forward(images)
+        if {m.dtype for m in maps} != {torch.bfloat16} or form_for([m.float() for m in maps]) != "tma":
+            fail("head_bf16: the maps are not bf16, or cast to fp32 they leave the TMA form")
+        head16(images, CONF, IOU, 300)
+        out16, launches = counted("head_bf16", lambda: [head16(images, CONF, IOU, 300)
+                                                        for _ in range(3)],
+                                  {"decode_outputs_cuda": 3, "nms_suppress": None})
+        out32 = head32(images, CONF, IOU, 300)
+        ms = {k: cuda_ms(lambda: d(images, CONF, IOU, 300), iters=10, warmup=2, hold=False)
+              for k, d in (("fp32_head", head32), ("bf16_head", head16))}
+    check_request("head_bf16", out16[-1], head16.spec.nc, BS)
+    for k, n in launches.items():
+        total[k] += n
+    v16, v32 = out16[-1][3], out32[3]
+    head_rec = dict(request_ms=ms, launches_3_requests=launches,
+                    keep_set_entries_differing=keep_set_difference(out16[-1], out32),
+                    kept_bf16=int(v16.sum()), kept_fp32=int(v32.sum()))
+    print(json.dumps({"head_bf16": head_rec}), flush=True)
+    del head32, head16, maps
+    torch.cuda.empty_cache()
+    return dict(fuse=fuse_rec, head_bf16=head_rec)
+
+
+def reload_check(images) -> dict:
+    """reload_weights on running Detectors, with and without fuse."""
+    import shutil
+    import torch
+    from yolo_continuous_tpu_torch.config.plan import cvt_cfg
+    from yolo_continuous_tpu_torch.detect_api import Detector
+    from yolo_continuous_tpu_torch.nn.builder import YoloModel, build_model_spec
+    root = os.path.join(HERE, "runs", "chip_smoke_reload")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    saved = random_weights_plan()
+    saved.save_path = os.path.join(root, "saved.msgpack")
+    empty = random_weights_plan()
+    empty.save_path = os.path.join(root, "missing.msgpack")
+    spec = build_model_spec(cvt_cfg(empty.model_cfg), empty.image_chan, empty.anchors,
+                            empty.num_labels, empty.anchors_mask)
+    torch.save(spread_weights(YoloModel(spec).state_dict(), 5), os.path.join(root, "saved.pth"))
+    rec = {}
+    for fuse in (False, True):
+        det = Detector(empty, device="cuda", seed=0, fuse=fuse)
+        with torch.inference_mode():
+            before = det(images, CONF, IOU, 300)
+            if det.reload_weights() is not False:
+                fail(f"reload (fuse={fuse}): a missing checkpoint did not return False")
+            if not all(torch.equal(x, y) for x, y in zip(before, det(images, CONF, IOU, 300))):
+                fail(f"reload (fuse={fuse}): a failed reload changed the weights")
+            if det.reload_weights(saved.save_path) is not True:
+                fail(f"reload (fuse={fuse}): the saved checkpoint did not load")
+            got = det(images, CONF, IOU, 300)
+            want = Detector(saved, device="cuda", fuse=fuse)(images, CONF, IOU, 300)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail(f"reload (fuse={fuse}): the next request differs from a fresh Detector's")
+        rec[f"fuse={fuse}"] = dict(bit_equal_to_fresh=True, kept=int(got[3].sum()),
+                                   changed=not torch.equal(got[1], before[1]))
+    print(json.dumps({"reload": rec}), flush=True)
+    return rec
+
+
+def zoo_on_card() -> dict:
+    """The zoo's chained rows, the multi-input and repeat nets and YoloBody
+    'l' and 'x' at 64 px, fp32, on the card against the CPU; then YoloBody
+    'x' at 640, batch 16, bf16, timed."""
+    import torch
+    from yolo_continuous_tpu_torch.nn.builder import (YoloModel, build_model_spec, init_weights,
+                                                      set_dtype)
+    from yolo_continuous_tpu_torch.nn.yolo_body import YoloBody
+    errs = {}
+    nets = list(ZOO_GROUPS) + list(ZOO_NETS) + ["yolobody-l", "yolobody-x"]
+    for name in nets:
+        if name.startswith("yolobody"):
+            model, size = YoloBody(80, name[-1]), 64
+        else:
+            cfg, size = zoo_net(name)
+            model = YoloModel(build_model_spec(cfg, 3, ANCHOR_ROWS, 2))
+        gen = torch.Generator().manual_seed(9)
+        init_weights(model, gen)
+        sd = spread_weights(model.state_dict(), 9)
+        with torch.no_grad():          # layer scales and implicit priors near 1, not 1e-6 / 0
+            for k in (k for k in sd if k.endswith(("gamma", "implicit"))):
+                sd[k].normal_(1.0, 0.1, generator=gen)
+        model.eval()
+        x = torch.from_numpy(np.random.RandomState(1).rand(2, 3, size, size).astype("float32"))
+        with torch.inference_mode():
+            want = model(x)
+            got = model.cuda()(x.cuda())
+        err = max((g.cpu() - w).abs().max().item() for g, w in zip(got, want))
+        if len(got) != len(want) or not err <= ZOO_TOL:
+            fail(f"zoo {name}: the card's maps differ from the CPU's by {err} (tol {ZOO_TOL})")
+        errs[name] = err
+        del model
+    body = set_dtype(YoloBody(80, "x").cuda().eval(), torch.bfloat16)
+    images = torch.rand(BS, 3, SIZE, SIZE, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: body(images), iters=5, warmup=2, hold=False)
+        maps = body(images)
+    if not all(torch.isfinite(m).all() for m in maps):
+        fail("YoloBody x @640: the maps are not finite")
+    rec = dict(rows=len(ZOO_BLOCKS), nets=nets, max_abs_err=errs, tol=ZOO_TOL,
+               yolobody_x_640_bf16_forward_ms=ms, batch=BS,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(json.dumps({"zoo": rec}), flush=True)
+    del body, images, maps
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_model_zoo():
+    """Phase 7; returns the launches of its counted requests and K3's record
+    at the P6 shape."""
+    import torch
+    t_phase = time.perf_counter()
+    total = {k.__name__: 0 for k in counters()}
+    k3 = p6_requests(total)
+    p6_train()
+    ibin_train(total)
+    images = torch.from_numpy(np.random.RandomState(0).rand(BS, SIZE, SIZE, 3)
+                              .astype("float32")).cuda()
+    fuse_and_head(total, images)
+    reload_check(images)
+    zoo_on_card()
+    print(json.dumps({"model_zoo": dict(launches=total, phase_s=time.perf_counter() - t_phase)}),
+          flush=True)
+    return total, k3
+
 
 def main() -> None:
     import torch
@@ -1231,6 +1755,7 @@ def main() -> None:
     phase_train()
     phase_train_reference()
     launches_validate_map = phase_train_run()
+    launches_model_zoo, k3_p6 = phase_model_zoo()
 
     meta = {
         "decode_level": ("csrc/decode.cu", "yolo_continuous_tpu/kernels/decode_pallas.py:67",
@@ -1254,9 +1779,13 @@ def main() -> None:
         other = {k: r[k] for k in ("strided_ms", "mma_sync_ms", "ms_300x1", "ms_1024x16",
                                    "launch_floor_ms", "host_us", "ms_25200x2",
                                    "bound_ms_25200x2") if k in r}
+        if name == "decode_level":  # K3 at the P6 shape: 4 levels, 16 x 102,000 x 85
+            other.update({f"{k}_p6": k3_p6[k] for k in ("ms", "strided_ms", "bound_ms",
+                                                         "max_abs_err")})
         kernels.append(dict(name=name, route="cuda", source=f"yolo_continuous_tpu_torch/{src}",
                             replaces=replaces, launches=launches[counter],
                             launches_validate_map=launches_validate_map[counter],
+                            launches_model_zoo=launches_model_zoo[counter],
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], **other))

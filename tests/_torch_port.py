@@ -24,8 +24,10 @@ YOLOV7_640_FUSED_TAILS = [
 def lively(tree, rs: np.random.RandomState, parent: str = ""):
     """Redraw every leaf of a JAX params / batch_stats tree (nested dicts).
 
-    ``implicit`` leaves: ImplicitA (``ia*``) ~ 0.1 randn, ImplicitM (``im*``)
-    ~ 1 + 0.1 randn."""
+    ``implicit`` leaves: ImplicitA (``ia*`` or an ``ImplicitA`` row) ~ 0.1
+    randn, ImplicitM (``im*`` or an ``ImplicitM`` row) ~ 1 + 0.1 randn;
+    RobustConv's layer scale ``gamma`` ~ 1 + 0.1 randn (its 1e-6 init would
+    hide the block)."""
     out = {}
     for k in sorted(tree):
         v = tree[k]
@@ -43,10 +45,164 @@ def lively(tree, rs: np.random.RandomState, parent: str = ""):
             out[k] = rs.rand(*shape) + 0.5
         elif k == "implicit" and parent.startswith(("ia", "im")):
             out[k] = (1.0 if parent.startswith("im") else 0.0) + 0.1 * rs.randn(*shape)
+        elif k == "implicit" and parent.endswith(("_ImplicitA", "_ImplicitM")):
+            out[k] = (1.0 if parent.endswith("M") else 0.0) + 0.1 * rs.randn(*shape)
+        elif k == "gamma":
+            out[k] = 1.0 + 0.1 * rs.randn(*shape)
         else:
             raise KeyError(f"unexpected leaf {k!r}")
         out[k] = out[k].astype(np.float32)
     return out
+
+
+# tests/test_zoo_coverage.py's SINGLE_INPUT_BLOCKS, without that file's JAX
+# import (the card's machine has no flax); tests/test_torch_port_zoo_a.py
+# holds the two equal
+ZOO_BLOCKS = [
+    ("Conv", [16, 3, 1]), ("Conv", [16, 3, 1, None, 1, "nn.LeakyReLU(0.1)"]),
+    ("nn.Conv2d", [16, 3, 1]), ("dw_conv", [16, 3, 1]), ("GhostConv", [16, 3, 1]),
+    ("RobustConv", [16, 7, 1]), ("RobustConv2", [16, 7, 2]), ("RepConv", [16, 3, 1]),
+    ("DownC", [16]), ("SPP", [16]), ("SPPF", [16]), ("SPPCSPC", [16]), ("GhostSPPCSPC", [16]),
+    ("Focus", [16, 3]), ("Stem", [16]), ("GhostStem", [16]), ("Bottleneck", [16]),
+    ("BottleneckCSPA", [16]), ("BottleneckCSPB", [16]), ("BottleneckCSPC", [16]),
+    ("RepBottleneck", [16]), ("RepBottleneckCSPA", [16]), ("RepBottleneckCSPB", [16]),
+    ("RepBottleneckCSPC", [16]), ("Res", [16]), ("ResCSPA", [16]), ("ResCSPB", [16]),
+    ("ResCSPC", [16]), ("RepRes", [16]), ("RepResCSPA", [16]), ("RepResCSPB", [16]),
+    ("RepResCSPC", [16]), ("ResX", [64, True, 8]), ("ResXCSPA", [64, True, 8]),
+    ("ResXCSPB", [64, True, 8]), ("ResXCSPC", [64, True, 8]), ("RepResX", [64, True, 8]),
+    ("RepResXCSPA", [64, True, 8]), ("RepResXCSPB", [64, True, 8]),
+    ("RepResXCSPC", [64, True, 8]), ("Ghost", [16]), ("GhostCSPA", [16]), ("GhostCSPB", [16]),
+    ("GhostCSPC", [16]), ("MP", []), ("SP", [3]), ("ReOrg", []), ("Foldcut", []),
+    ("Contract", [2]), ("Expand", [2]), ("nn.BatchNorm2d", []),
+]
+
+# The zoo's rows chained into one net a group (a block takes the block before
+# it), so that a few compiles cover them all: (input size, ZOO_BLOCKS
+# indices, extra rows). The spatial size stays at least 8 at the head.
+ZOO_GROUPS = {
+    # 16 -> 16 at /2; the Conv rows also with every activation the YAML parser gives
+    "conv": (64, range(0, 8), [["Conv", [16, 3, 1, None, 1, "nn.ReLU()"]],
+                               ["Conv", [16, 1, 1, None, 1, "nn.Hardswish()"]],
+                               ["Conv", [16, 3, 1, None, 1, "nn.Identity()"]],
+                               ["Conv", [16, 1, 1, None, 1, "nn.SiLU()"]]]),
+    "spp": (64, range(8, 13), []),             # DownC (/2), then the SPP family
+    "stems": (512, range(13, 16), []),         # Focus (/2), Stem and GhostStem (/4 each)
+    "bottleneck": (64, range(16, 24), []),
+    "res": (64, range(24, 32), []),
+    "resx": (64, range(32, 40), []),
+    # Ghost family, MP (/2), SP, nn.BatchNorm2d; the implicit rows and a transformer
+    "ghost": (64, list(range(40, 46)) + [50], [["ImplicitA", []], ["ImplicitM", []],
+                                                 ["TransformerBlock", [16, 16, 4, 2]]]),
+    "reshape": (64, range(46, 50), []),        # ReOrg (/2), Foldcut, Contract (/2), Expand (x2)
+}
+# tests/test_zoo_coverage.py's multi-input and repeat nets (no stem added)
+ZOO_NETS = {
+    "multi_input": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "Conv", [16, 3, 1]],
+                    [[-1, -2], 1, "Concat", [1]], [[-1, -2], 1, "Chuncat", [1]],
+                    [-1, 1, "Conv", [16, 1, 1]], [[-1, 1], 1, "Shortcut", [0]]],
+    "repeat": [[-1, 1, "Conv", [16, 3, 2]], [-1, 2, "Bottleneck", [16]],
+               [-1, 2, "BottleneckCSPA", [16]]],
+}
+
+
+def zoo_net(group: str):
+    """(net dict, input size) of a ZOO_GROUPS group or a ZOO_NETS net."""
+    if group in ZOO_NETS:
+        return single_block_net(ZOO_NETS[group], stem=False), 64
+    size, idx, extra = ZOO_GROUPS[group]
+    rows = [[-1, 1, n, list(a)] for n, a in [ZOO_BLOCKS[i] for i in idx] + extra]
+    return single_block_net(rows), size
+
+
+# a small net of RepConv rows: an identity branch, a strided one, a repeated
+# one; the Detect head reads layers 4, 6, 7 (strides 8, 16, 32)
+FUSE_NET = {"depth_multiple": 1.0, "width_multiple": 1.0,
+            "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "RepConv", [16, 3, 1]],
+                         [-1, 1, "Conv", [32, 3, 2]], [-1, 1, "RepConv", [32, 3, 2]],
+                         [-1, 2, "RepConv", [32, 3, 1]], [-1, 1, "Conv", [64, 3, 2]],
+                         [-1, 1, "RepConv", [64, 3, 1]], [-1, 1, "Conv", [64, 3, 2]]],
+            "head": [[[4, 6, 7], 1, "Detect", ["nc", "anchors"]]]}
+
+
+def spread_weights(model, seed: int):
+    """Redraw a port model's floating state in place, from a CPU generator,
+    at the scale ``lively`` gives JAX trees (no JAX here): weights of fan-in
+    n ~ N(0, 1/n), BN scales ~ 1 + 0.1 N(0, 1), biases and means ~ 0.1 N(0, 1),
+    variances U(0.5, 1.5), implicit priors and layer scales ~ 1 + 0.1 N(0, 1)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if not t.is_floating_point():
+                continue
+            draw = torch.empty(t.shape)                 # on the CPU, whatever the model's device
+            if name.endswith("running_var"):
+                draw.uniform_(0.5, 1.5, generator=gen)
+            elif name.endswith(("bias", "running_mean")):
+                draw.normal_(0.0, 0.1, generator=gen)
+            elif t.dim() >= 2 and name.endswith("weight"):
+                draw.normal_(0.0, (1.0 / t[0].numel()) ** 0.5, generator=gen)
+            else:                       # BN scales, implicit priors, layer scales
+                draw.normal_(1.0, 0.1, generator=gen)
+            t.copy_(draw)
+    return model
+
+
+def single_block_net(rows, stem: bool = True) -> dict:
+    """``rows`` after a stem conv (16 channels, /2; unless ``not stem``) and
+    before a 3-level Detect head (two more /2 convs), as
+    tests/test_zoo_coverage.py builds its nets."""
+    head = [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "Conv", [32, 3, 2]],
+            [[-3, -2, -1], 1, "Detect", ["nc", "anchors"]]]
+    backbone = ([[-1, 1, "Conv", [16, 3, 2]]] if stem else []) + [list(r) for r in rows]
+    return {"depth_multiple": 1.0, "width_multiple": 1.0, "backbone": backbone, "head": head}
+
+
+def jax_and_port_maps(cfg: dict, size: int, nc: int = 2, batch: int = 2, seed: int = 0,
+                      anchors=None, anchors_mask=None):
+    """The raw head maps of the JAX ``YoloModel`` (eval, fp32, jitted) and of
+    the port's, from the same ``lively`` weights and input. The JAX tree is
+    taken by ``eval_shape`` (no init run). Returns (jax maps as numpy, port
+    maps as numpy, the port model, (JAX spec, params, batch_stats))."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from yolo_continuous_tpu.nn.builder import YoloModel as JaxModel
+    from yolo_continuous_tpu.nn.builder import build_model_spec as jax_spec
+    from yolo_continuous_tpu_torch.nn.builder import YoloModel, build_model_spec
+    from yolo_continuous_tpu_torch.tools.jax_weights import state_dict_from_jax
+
+    anchors = anchors or ANCHORS
+    x = np.random.RandomState(seed).rand(batch, size, size, 3).astype(np.float32)
+    jm = JaxModel(spec=jax_spec(cfg, 3, anchors, nc, anchors_mask))
+    shapes = jax.eval_shape(lambda k, a: jm.init(k, a, False), jax.random.PRNGKey(0),
+                            jnp.asarray(x[:1]))
+    rs = np.random.RandomState(seed + 1)
+    params, stats = lively(shapes["params"], rs), lively(shapes.get("batch_stats", {}), rs)
+    ref = jax.jit(jm.apply, static_argnums=2)({"params": params, "batch_stats": stats},
+                                               jnp.asarray(x), False)
+    model = YoloModel(build_model_spec(cfg, 3, anchors, nc, anchors_mask)).eval()
+    model.load_state_dict(state_dict_from_jax(model.spec, params, stats), strict=True)
+    with torch.no_grad():
+        ours = model(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
+    return [np.asarray(r) for r in ref], [o.numpy() for o in ours], model, (jm.spec, params, stats)
+
+
+def assert_state_dict_equals_export(jax_tree, port_spec, attention: bool = False):
+    """``state_dict_from_jax`` gives JAX ``export_state_dict``'s keys and
+    values (and ``num_batches_tracked``), but for the attention, which export
+    has no rule for; ``attention`` says whether the net has some."""
+    from yolo_continuous_tpu.tools.torch_import import export_state_dict
+    from yolo_continuous_tpu_torch.tools.jax_weights import state_dict_from_jax
+    spec, params, stats = jax_tree
+    ours = state_dict_from_jax(port_spec, params, stats)
+    ref = {k: np.asarray(v) for k, v in export_state_dict(spec, params, stats).items()}
+    exported = {k for k in ref if ".tr" in k}
+    assert bool(exported) == attention
+    plain = {k for k in ours if not k.endswith("num_batches_tracked") and ".tr." not in k}
+    assert plain == set(ref) - exported
+    for k in plain:
+        np.testing.assert_array_equal(ours[k].numpy(), ref[k], err_msg=k)
 
 
 def min_score_gap(scores, k: int) -> float:

@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import (YOLOV7_640_FUSED_TAILS, ibin_logits, min_bin_gap, tiny_plan_cfg,
-                         write_dataset)
+from _torch_port import (ANCHORS as ANCHOR_ROWS, FUSE_NET, YOLOV7_640_FUSED_TAILS, ZOO_GROUPS,
+                         ZOO_NETS, ibin_logits, min_bin_gap, spread_weights, tiny_plan_cfg,
+                         write_dataset, zoo_net)
 from yolo_continuous_tpu_torch.config.plan import TrainPlan
 from yolo_continuous_tpu_torch.detect_api import Detector
 from yolo_continuous_tpu_torch.kernels import bin_decode, decode
@@ -26,7 +27,9 @@ from yolo_continuous_tpu_torch.kernels.fused_conv import (form_for, fused_pointw
                                                           reciprocal_mismatches)
 from yolo_continuous_tpu_torch.kernels import nms as nms_k1k2
 from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
+from yolo_continuous_tpu_torch.nn.builder import YoloModel, build_model_spec
 from yolo_continuous_tpu_torch.nn.heads import head_view
+from yolo_continuous_tpu_torch.nn.yolo_body import YoloBody
 from yolo_continuous_tpu_torch.ops import augment as aug
 from yolo_continuous_tpu_torch.ops.enhance import equalize
 from yolo_continuous_tpu_torch.ops.decode import decode_level, decode_level_bin
@@ -681,3 +684,125 @@ def test_trainer_run_and_resume_on_the_card(cuda, tmp_path):
     print("resume on the card bit-equal:", all(torch.equal(a[k], b[k]) for k in a),
           "relative L2", (num / den) ** 0.5)
     assert (num / den) ** 0.5 <= 1e-3
+
+
+# ---------------------------------------------------------------- the model zoo
+
+P6_ANCHORS = [[19, 27, 44, 40, 38, 94], [96, 68, 86, 152, 180, 137],
+              [140, 301, 303, 264, 238, 542], [436, 615, 739, 380, 925, 792]]
+
+
+def _p6_plan(size):
+    """tests/test_p6_model.py's plan: cfg/chip_tiny.yaml with yolov7-p6-lite,
+    the P6 anchors and mask, 2 classes."""
+    plan = TrainPlan("cfg/chip_tiny.yaml")
+    plan.model_cfg, plan.anchors = "cfg/net/yolov7-p6-lite.yaml", P6_ANCHORS
+    plan.anchors_mask = [[9, 10, 11], [6, 7, 8], [3, 4, 5], [0, 1, 2]]
+    plan.image_size, plan.labels, plan.num_labels = size, ["a", "b"], 2
+    plan.save_path = "/nonexistent/x.msgpack"
+    return plan
+
+
+@pytest.mark.parametrize("bs", [1, 3])
+def test_p6_decode_takes_the_tma_form_at_four_levels(cuda, bs):
+    """yolov7-p6-lite's head maps (128 px: 16, 8, 4, 2 cells a side): K3 in
+    its TMA form, one launch for the four levels, bit-equal to the strided
+    form and within 1e-5 of the plain version; a request launches K3 once and
+    K1."""
+    det = Detector(_p6_plan(128), device="cuda", dtype=torch.float32, seed=0)
+    spread_weights(det.model, 3)
+    images = np.random.RandomState(bs).rand(bs, 128, 128, 3).astype(np.float32)
+    maps = det.forward(images)
+    assert [m.shape[1] for m in maps] == [16, 8, 4, 2]
+    for normalized in (True, False):
+        got, strided, want = _decode_both_forms(maps, normalized, det.spec.anchors,
+                                                det.spec.strides)
+        assert got.shape == (bs, 3 * (256 + 64 + 16 + 4), 7)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, strided)
+    n3, n1 = decode_outputs_cuda.launches, nms_suppress.launches
+    boxes, scores, _, valid = det(images, 0.01, 0.45, 100)
+    torch.cuda.synchronize()
+    assert decode_outputs_cuda.launches - n3 == 1 and nms_suppress.launches - n1 == 1
+    assert torch.isfinite(boxes).all() and bool(valid.any())
+
+
+def _fuse_plan():
+    cfg = tiny_plan_cfg("Detect", 96)
+    cfg.update(model_cfg=FUSE_NET, save_dir="/nonexistent/")
+    return TrainPlan(cfg)
+
+
+def test_fuse_on_the_card(cuda):
+    """Detector(fuse=True) on the card: the CPU's fused maps within 1e-4, the
+    card's unfused maps within tests/test_fuse.py's 2e-3, no branch left; in
+    bf16 finite. yolov7 with fuse and fused_tails launches K5 24 times."""
+    plan = _fuse_plan()
+    base = Detector(plan, device="cpu", seed=0)
+    sd = spread_weights(base.model, 4).state_dict()
+    x = np.random.RandomState(0).rand(2, 96, 96, 3).astype(np.float32)
+    fused = Detector(plan, device="cuda", dtype=torch.float32, state_dict=sd, fuse=True)
+    assert not any("rbr_dense" in k or "rbr_1x1" in k for k in fused.model.state_dict())
+    cpu = Detector(plan, device="cpu", state_dict=sd, fuse=True).forward(x)
+    plain = Detector(plan, device="cuda", dtype=torch.float32, state_dict=sd).forward(x)
+    for g, c, p in zip(fused.forward(x), cpu, plain):
+        torch.testing.assert_close(g.cpu(), c, rtol=0, atol=1e-4)
+        torch.testing.assert_close(g, p, rtol=0, atol=2e-3)
+    bf16 = Detector(plan, device="cuda", state_dict=sd, fuse=True)
+    assert all(torch.isfinite(m).all() for m in bf16.forward(x))
+    v7 = TrainPlan("cfg/chip_tiny.yaml")
+    v7.model_cfg, v7.image_size, v7.save_path = "cfg/net/yolov7.yaml", 64, "/nonexistent/x.msgpack"
+    det = Detector(v7, device="cuda", seed=0, fuse=True, fused_tails=True)
+    n5 = fused_pointwise_conv_cuda.launches
+    det.forward(np.zeros((1, 64, 64, 3), np.float32))
+    torch.cuda.synchronize()
+    assert fused_pointwise_conv_cuda.launches - n5 == 24
+
+
+def test_bin_loss_step_on_the_card(cuda):
+    """One train step of the tiny IBin net (bin_yolo_loss), fp32, on the card
+    and on the CPU from the same weights: loss parts rtol 1e-4, num_fg equal,
+    updated weights within 1e-3 relative L2."""
+    cfg = tiny_plan_cfg("IBin", 64)
+    sd = spread_weights(YoloModel(Trainer(TrainPlan(dict(cfg)), device="cpu").spec), 5).state_dict()
+    rs = np.random.RandomState(6)
+    images = rs.rand(2, 64, 64, 3).astype(np.float32)
+    labels = np.zeros((2, 8, 5), np.float32)
+    labels[:, 0] = [0, 0.5, 0.5, 0.4, 0.4]
+    labels[:, 1] = [1, 0.3, 0.3, 0.2, 0.25]
+    lmask = np.zeros((2, 8), bool)
+    lmask[:, :2] = True
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(TrainPlan(dict(cfg)), device=dev, dtype=torch.float32)
+        state, parts = tr.train_step(tr.init_state(state_dict=sd), images, labels, lmask,
+                                     0.01, 0.1, 0.937)
+        out[dev] = ({k: float(v) for k, v in parts.items()},
+                    {k: v.detach().cpu() for k, v in state["model"].state_dict().items()})
+    (pc, wc), (pg, wg) = out["cpu"], out["cuda"]
+    assert pg["num_fg"] == pc["num_fg"] > 0 and "bin" in pg
+    for k in ("loss", "box", "obj", "cls", "bin"):
+        assert abs(pg[k] - pc[k]) <= 1e-4 * abs(pc[k]), k
+    keys = [k for k in wc if wc[k].is_floating_point()]
+    num = sum(float(((wg[k].double() - wc[k].double()) ** 2).sum()) for k in keys)
+    den = sum(float(((wc[k].double() - sd[k].double()) ** 2).sum()) for k in keys)
+    assert (num / den) ** 0.5 <= 1e-3         # relative to the update itself
+
+
+@pytest.mark.parametrize("group", sorted(ZOO_GROUPS) + sorted(ZOO_NETS) + ["yolobody-l"])
+def test_zoo_rows_on_the_card(cuda, group):
+    """Every chained group of the zoo's rows (tests/_torch_port.py), and
+    YoloBody 'l', on the card in fp32 against the CPU: maps within 1e-4."""
+    if group == "yolobody-l":
+        model, size = YoloBody(2, "l"), 64
+    else:
+        cfg, size = zoo_net(group)
+        model = YoloModel(build_model_spec(cfg, 3, ANCHOR_ROWS, 2))
+    model = spread_weights(model, 7).eval()
+    x = torch.from_numpy(np.random.RandomState(1).rand(2, 3, size, size).astype(np.float32))
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4)

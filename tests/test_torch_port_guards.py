@@ -31,7 +31,8 @@ def test_every_port_module_is_scanned():
     assert len(FILES) > 15 and "yolo_continuous_tpu_torch/detect_api.py" in FILES
     assert "yolo_continuous_tpu_torch/train/train_loop.py" in FILES
     for rel in ("data/dataset.py", "ops/augment.py", "ops/enhance.py",
-                "eval/evaluator.py", "eval/validate.py", "train/__main__.py", "val.py"):
+                "eval/evaluator.py", "eval/validate.py", "train/__main__.py", "val.py",
+                "nn/fuse.py", "nn/yolo_body.py", "losses/bin_loss.py"):
         assert f"yolo_continuous_tpu_torch/{rel}" in FILES
 
 
@@ -55,6 +56,8 @@ import yolo_continuous_tpu_torch.data.dataset
 import yolo_continuous_tpu_torch.ops.augment, yolo_continuous_tpu_torch.ops.enhance
 import yolo_continuous_tpu_torch.ops.preprocess
 import yolo_continuous_tpu_torch.eval.evaluator, yolo_continuous_tpu_torch.eval.validate
+import yolo_continuous_tpu_torch.nn.fuse, yolo_continuous_tpu_torch.nn.yolo_body
+import yolo_continuous_tpu_torch.losses.bin_loss
 import torch
 from yolo_continuous_tpu_torch.kernels import _build
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r} or m == "triton")

@@ -21,7 +21,7 @@ from yolo_continuous_tpu.ops import boxes as jax_boxes
 from yolo_continuous_tpu_torch.config import plan as plan_mod
 from yolo_continuous_tpu_torch.config.plan import TrainPlan
 from yolo_continuous_tpu_torch.nn import layers
-from yolo_continuous_tpu_torch.nn.builder import YoloModel, build_model_spec
+from yolo_continuous_tpu_torch.nn.builder import YoloModel, build_model, build_model_spec
 from yolo_continuous_tpu_torch.ops import boxes
 
 NETS = ["yolov7.yaml", "yolov7-tiny.yaml", "yolov7-aux.yaml", "yolov7-p6-lite.yaml"]
@@ -75,9 +75,15 @@ def test_yaml_subset_loader_refuses_the_rest(text):
 
 
 def test_unported_rows_raise_with_their_roadmap_item():
-    spec = build_model_spec(*_spec_args("yolov7-p6-lite.yaml"))   # ReOrg, DownC
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
-        YoloModel(spec)
+    """Every row of the zoo is ported now (p6-lite's ReOrg and DownC build);
+    a row JAX does not know raises as JAX's ``unknown module``."""
+    cfg, chan, anchors, nc, mask = _spec_args("yolov7-p6-lite.yaml")
+    assert len(build_model(cfg, anchors, nc, chan, mask).model) == 71
+    net = {"depth_multiple": 1.0, "width_multiple": 1.0,
+           "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "NoSuchBlock", []]],
+           "head": [[[0, 1, 1], 1, "Detect", ["nc", "anchors"]]]}
+    with pytest.raises(ValueError, match="unknown module 'NoSuchBlock' at layer 1"):
+        YoloModel(build_model_spec(net, 3, ANCHORS, 2))
 
 
 @pytest.mark.parametrize("flag", list(boxes.CvtFlag), ids=lambda f: f.name)

@@ -260,11 +260,14 @@ def test_eval_loss_matches_jax(iaux):
 
 
 def test_trainer_raises_without_cuda_and_for_an_ibin_head(monkeypatch):
+    """Raises without a card; an IBin head now trains with bin_yolo_loss
+    (its parity: tests/test_torch_port_bin_loss.py)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(TrainPlan(tiny_plan_cfg("IDetect", 64)))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Trainer(TrainPlan(tiny_plan_cfg("IBin", 64)), device="cpu")
+    tr = Trainer(TrainPlan(tiny_plan_cfg("IBin", 64)), device="cpu")
+    _, parts = tr.train_step(tr.init_state(seed=0), *_batch(2), *HYPER)
+    assert set(parts) == {"loss", "box", "obj", "cls", "bin", "num_fg"}
 
 
 def test_train_mode_keeps_fp32_master_weights_and_logits():

@@ -209,13 +209,16 @@ def test_stop_after_epoch_and_warm_start(mixed, tmp_path):
             assert torch.equal(v, ema[k]), k
 
 
-def test_train_cli_runs_on_the_cpu(mixed, tmp_path):
+def test_train_cli_runs_on_the_cpu(mixed, tmp_path, capsys, monkeypatch):
     path = tmp_path / "plan.yaml"
     path.write_text(yaml.safe_dump(_cfg(mixed, tmp_path, epochs=1)))
     state = train_cli.main([str(path), "--device", "cpu"])
     assert state["step"] == 3 and os.path.exists(tmp_path / "t.train.pt.last")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_cli.main([str(path), "--device", "cpu", "--verbose"])
+    capsys.readouterr()
+    monkeypatch.setattr(Trainer, "run", lambda self: "ran")   # the run itself is tested above
+    assert train_cli.main([str(path), "--device", "cpu", "--verbose"]) == "ran"
+    table = capsys.readouterr().out.splitlines()
+    assert table[-1].startswith("Model Summary: ") and "GFLOPs @ 64px" in table[-1]
     if not torch.cuda.is_available():       # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_cli.main([str(path)])

@@ -1,6 +1,7 @@
 """Single-image / batched inference API on PyTorch.
 
-Counterpart of ``yolo_continuous_tpu/detect_api.py`` (``Detector``,
+Counterpart of ``yolo_continuous_tpu/detect_api.py`` (``Detector`` with
+``fuse``, ``head_dtype``, ``fused_tails`` and ``reload_weights``;
 ``TargetBox``, ``generate_colors``, ``predict``): forward (with the
 ``fused_tails`` option, kernel K5 on CUDA), grid decode (kernel K3 on CUDA;
 IBin heads: kernel K4), class-aware NMS (kernels K1/K2 on CUDA), letterbox
@@ -8,8 +9,7 @@ un-mapping. Everything up to the fixed-size NMS result stays on the device.
 
 Runs on ``cuda`` by default and raises if there is no CUDA device; pass
 ``device="cpu"`` for the plain CPU path (the tests do). Not ported yet:
-``fuse``, ``quantize``, ``calibrate``, ``head_dtype`` and
-``reload_weights`` (ROADMAP.md).
+``quantize`` and ``calibrate`` (ROADMAP.md Queue 1 item 18).
 
 Deliberate fix kept from the JAX package: prediction runs on RGB, as
 training does (the reference predicts on cv2's BGR, ``detect.py:23``).
@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from .config.plan import TrainPlan, check_file, cvt_cfg
-from .nn.builder import YoloModel, build_model_spec
+from .nn.builder import YoloModel, build_model_spec, format_model_info
+from .nn.fuse import deploy_spec, fuse_model_params
 from .ops.decode import decode_outputs, decode_outputs_bin
 from .ops.nms import batched_nms, yolo_correct_boxes
 from .ops.preprocess import cv2, letterbox
@@ -110,6 +111,14 @@ class Detector:
     SiLU (``layers.Conv``; kernel K5 on CUDA); it defaults to the plan's
     ``fused_tails`` key (off), as ``detect_api.py:100-102``.
 
+    ``fuse=True`` serves the RepConv deploy form (``detect_api.py:130-139``):
+    the weights found above, loaded into the train-form model in fp32, are
+    re-parameterized by ``nn/fuse.fuse_model_params`` and served by the
+    model of ``deploy_spec``. ``head_dtype`` (default fp32) is the dtype of
+    the head's logits (``layers.LogitConv``); the decode casts the maps to
+    fp32 before its kernel, as JAX does. ``reload_weights`` swaps in a
+    checkpoint's weights for the next call.
+
     On CUDA, TF32 is switched off for cuDNN convolutions and cuBLAS
     matmuls: the fp32 head convolution then keeps fp32 products, as the
     JAX reference does (with a bf16 body its inputs are bf16 values, whose
@@ -118,32 +127,60 @@ class Detector:
 
     def __init__(self, plan: TrainPlan, device="cuda", dtype: Optional[torch.dtype] = None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None, seed: int = 0,
-                 fused_tails: Optional[bool] = None, use_ema: bool = True):
+                 fused_tails: Optional[bool] = None, use_ema: bool = True, fuse: bool = False,
+                 head_dtype: Optional[torch.dtype] = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.plan = plan
         self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda" else torch.float32)
-        self.spec = build_model_spec(cvt_cfg(plan.model_cfg), plan.image_chan, plan.anchors,
-                                     plan.num_labels, plan.anchors_mask)
+        self.head_dtype = head_dtype or torch.float32
+        self.fuse = bool(fuse)
+        # the checkpoints' (train) form, and the form served
+        self.train_spec = build_model_spec(cvt_cfg(plan.model_cfg), plan.image_chan,
+                                           plan.anchors, plan.num_labels, plan.anchors_mask)
+        self.spec = deploy_spec(self.train_spec) if self.fuse else self.train_spec
         self.nl = len(self.spec.strides)
         if fused_tails is None:
             fused_tails = bool(plan.cfg.get("fused_tails", False))
         self.fused_tails = bool(fused_tails)
-        model = YoloModel(self.spec, fused_tails=self.fused_tails)
         if state_dict is None:
-            state_dict = saved_weights(plan.save_path, self.spec, use_ema)
-        if state_dict is not None:
-            model.load_state_dict(state_dict, strict=True)
-        else:
-            model.init_weights(torch.Generator().manual_seed(seed))
-        self.model = model.to(self.device).eval().set_dtype(self.dtype)
+            state_dict = saved_weights(plan.save_path, self.train_spec, use_ema)
+        if state_dict is None:
+            state_dict = YoloModel(self.train_spec).init_weights(
+                torch.Generator().manual_seed(seed)).state_dict()
+        model = YoloModel(self.spec, fused_tails=self.fused_tails)
+        model.load_state_dict(self._served(state_dict), strict=True)
+        self.model = model.to(self.device).eval().set_dtype(self.dtype,
+                                                              head_dtype=self.head_dtype)
+
+    def _served(self, state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A train-form state dict -> the served model's: checked against the
+        train-form model and, under ``fuse``, re-parameterized from its fp32
+        copy on the CPU."""
+        if not self.fuse:
+            return state_dict
+        template = YoloModel(self.train_spec)
+        template.load_state_dict(state_dict, strict=True)
+        return fuse_model_params(self.train_spec, template.state_dict())
+
+    def reload_weights(self, path: Optional[str] = None, use_ema: bool = True) -> bool:
+        """Swap in the weights saved at ``path`` (default: the plan's
+        ``save_path``), read through the constructor's order of sources
+        (``saved_weights``), in place: the next call serves them. Returns
+        False, and keeps the weights, when no checkpoint is there
+        (``detect_api.py:145-197``)."""
+        state_dict = saved_weights(path or self.plan.save_path, self.train_spec, use_ema)
+        if state_dict is None:
+            return False
+        self.model.load_state_dict(self._served(state_dict), strict=True)
+        return True
 
     @torch.inference_mode()
     def forward(self, images) -> List[torch.Tensor]:
-        """images (bs, H, W, 3) float 0..1 -> raw maps [(bs, h, w, na, no)] fp32
-        (IAuxDetect: the leads only, iaux_detect.py:52)."""
+        """images (bs, H, W, 3) float 0..1 -> raw maps [(bs, h, w, na, no)] in
+        ``head_dtype`` (IAuxDetect: the leads only, iaux_detect.py:52)."""
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.contiguous_format)
         return self.model(x)[: self.nl]
@@ -164,14 +201,18 @@ class Detector:
 
 def predict(cfg_file: str, image_path: str, conf_threshold: float = 0.3,
             nms_threshold: float = 0.3, detector: Optional[Detector] = None,
-            save_path: Optional[str] = None, show: bool = False,
+            save_path: Optional[str] = None, show: bool = False, verbose: bool = False,
             device="cuda") -> List[TargetBox]:
     """Public API mirroring ``detect.py:208-265``: prints and returns the
-    TargetBox records; optionally renders boxes to ``save_path``."""
+    TargetBox records; optionally renders boxes to ``save_path``. ``verbose``
+    prints the per-layer parameter table first (Model.print_info,
+    nets/yolo.py:127-141)."""
     if cv2 is None:
         raise RuntimeError("predict needs OpenCV (cv2) to read and draw images")
     plan = TrainPlan(check_file(cfg_file))
     det = detector or Detector(plan, device=device)
+    if verbose:
+        print(format_model_info(det.model, plan.image_size))
     size = (plan.image_size, plan.image_size)
 
     bgr = cv2.imread(image_path)

@@ -8,10 +8,14 @@ in NCHW, with the reference's module names (``model.{i}.conv.weight``,
 ``model.{head}.yolo_head_P3.weight``, ...), so a state_dict from
 ``tools/jax_weights.state_dict_from_jax`` loads with ``strict=True``.
 
-The port builds the rows that yolov7, yolov7-tiny and yolov7-aux use (Conv,
-MP, SP, Concat, nn.Upsample, SPPCSPC, RepConv) and every head (Detect,
-IDetect, IAuxDetect, IBin). Any other row raises ``NotImplementedError``
-naming its ROADMAP item.
+``YoloModel`` builds every row that JAX ``YoloModel._run_layer`` takes
+(``builder.py:367-494``): the module zoo of ``nn/layers.py``, repeats
+``n > 1`` as ``nn.Sequential`` (``model.{i}.{r}``), the CSP rows with ``n``
+inserted into their ``m`` chain, and every head. ``model_info``,
+``model_gflops`` and ``format_model_info`` are the ``Model.print_info``
+table of ``builder.py:508-611``, read off the torch model. One deliberate
+difference: the JAX ``format_model_info`` drops the GFLOPs figure when
+counting raises; the port lets the error through.
 """
 from __future__ import annotations
 
@@ -307,38 +311,115 @@ def _defn(args, idx, default):
     return args[idx] if len(args) > idx else default
 
 
-_LATER_ZOO = "ROADMAP.md Queue 1 item 15 (the rest of the module zoo)"
+_CSP_INNER = {"Bottleneck": "bottleneck", "RepBottleneck": "rep_bottleneck", "Res": "res",
+              "RepRes": "rep_res", "ResX": "resx", "RepResX": "rep_resx", "Ghost": "ghost"}
+
+
+def _in_channels(s: LayerSpec, spec: ModelSpec) -> int:
+    """Channels reaching row ``s``: the sum over its inputs (the spec keeps
+    only the first input's for rows that are not concatenations)."""
+    if isinstance(s.f, int):
+        return s.c1
+
+    def out_ch(j):
+        j = s.i - 1 if j == -1 else j % s.i
+        return spec.layers[j].c2
+    return sum(out_ch(j) for j in s.f)
 
 
 def _make_layer(s: LayerSpec, spec: ModelSpec, fused_tails: bool = False) -> nn.Module:
+    """One row as JAX ``YoloModel._run_layer`` builds it."""
     name, a = s.name, s.args
 
     def repeat(make):
         if s.n == 1:
             return make()
+        if s.c1 != s.c2:
+            # the reference builds every repeat from (c1, c2), so its second
+            # takes c2 channels where it expects c1; flax infers the input
+            raise ValueError(f"layer {s.i}: {s.n} repeats of {name} from {s.c1} to {s.c2} "
+                             "channels; the port repeats only c1 == c2 rows")
         return nn.Sequential(*[make() for _ in range(s.n)])
 
     if name == "Conv":
         return repeat(lambda: L.Conv(s.c1, s.c2, _def(a, 0, 1), _def(a, 1, 1),
                                      _defn(a, 2, None), _def(a, 3, 1),
                                      _defn(a, 4, True), fused_tail=fused_tails))
+    if name == "nn.Conv2d":
+        return L.BiasConv2d(s.c1, s.c2, _def(a, 0, 1), _def(a, 1, 1), _def(a, 2, 0), bias=True)
+    if name in ("dw_conv", "DWConv"):
+        return repeat(lambda: L.DWConv(s.c1, s.c2, _def(a, 0, 1), _def(a, 1, 1), _defn(a, 2, True)))
+    if name in ("RobustConv", "RobustConv2"):
+        cls = L.RobustConv if name == "RobustConv" else L.RobustConv2
+        return repeat(lambda: cls(s.c1, s.c2, _def(a, 0, 7), _def(a, 1, 1 if cls is L.RobustConv
+                                                                       else 4),
+                                  _defn(a, 2, None), _def(a, 3, 1), _defn(a, 4, True),
+                                  _def(a, 5, 1e-6)))
+    if name == "GhostConv":
+        return repeat(lambda: L.GhostConv(s.c1, s.c2, _def(a, 0, 1), _def(a, 1, 1), _def(a, 2, 1),
+                                          _defn(a, 3, True)))
     if name == "RepConv":
         return repeat(lambda: L.RepConv(s.c1, s.c2, _def(a, 0, 3), _def(a, 1, 1),
                                         _defn(a, 2, None), _def(a, 3, 1),
                                         _defn(a, 4, True), _def(a, 5, False)))
-    if name == "SPPCSPC":
-        return L.SPPCSPC(s.c1, s.c2, _def(a, 0, 1), _def(a, 1, False),
-                         _def(a, 2, 1), _def(a, 3, 0.5), _def(a, 4, (5, 9, 13)))
+    if name == "DownC":
+        return L.DownC(s.c1, s.c2, _def(a, 0, 1), _def(a, 1, 2))
+    if name == "SPP":
+        return L.SPP(s.c1, s.c2, _def(a, 0, (5, 9, 13)))
+    if name == "SPPF":
+        return L.SPPF(s.c1, s.c2, _def(a, 0, 5))
+    if name in ("SPPCSPC", "GhostSPPCSPC"):
+        return L.SPPCSPC(s.c1, s.c2, _def(a, 0, 1), _def(a, 1, False), _def(a, 2, 1),
+                         _def(a, 3, 0.5), _def(a, 4, (5, 9, 13)), ghost=name == "GhostSPPCSPC")
+    if name == "Focus":
+        return repeat(lambda: L.Focus(s.c1, s.c2, _def(a, 0, 1), _def(a, 1, 1), _defn(a, 2, None),
+                                      _def(a, 3, 1), _defn(a, 4, True)))
+    if name in ("Stem", "GhostStem"):
+        return L.Stem(s.c1, s.c2, ghost=name == "GhostStem")
+    if name in ("Bottleneck", "RepBottleneck"):
+        return repeat(lambda: L.Bottleneck(s.c1, s.c2, _def(a, 0, True), _def(a, 1, 1),
+                                           _def(a, 2, 0.5), name == "RepBottleneck"))
+    if name in ("Res", "RepRes", "ResX", "RepResX"):
+        g = 32 if "X" in name else 1
+        return repeat(lambda: L.Res(s.c1, s.c2, _def(a, 0, True), _def(a, 1, g),
+                                    _def(a, 2, 0.5), name.startswith("Rep")))
+    if name == "Ghost":
+        return repeat(lambda: L.Ghost(s.c1, s.c2, _def(a, 0, 3), _def(a, 1, 1)))
+    if name[-4:] in ("CSPA", "CSPB", "CSPC") and name[:-4] in _CSP_INNER:
+        topo, base = name[-1], name[:-4]
+        return L.CSP(topo, s.c1, s.c2, _def(a, 0, 1), _def(a, 1, topo != "B"),
+                     _def(a, 2, 32 if "X" in base else 1), _def(a, 3, 0.5), _CSP_INNER[base])
     if name == "MP":
-        return L.MP(_def(a, 0, 2))
+        return L.Shape(L.mp, _def(a, 0, 2))
     if name == "SP":
-        return L.SP(_def(a, 0, 3), _def(a, 1, 1))
+        return L.Shape(L.sp, _def(a, 0, 3), _def(a, 1, 1))
+    if name == "ReOrg":
+        return L.Shape(L.reorg)
     if name == "Concat":
-        return L.Concat()
+        return L.Shape(L.concat)
+    if name == "Chuncat":
+        return L.Shape(L.chuncat)
+    if name == "Shortcut":
+        return L.Shape(L.shortcut)
+    if name == "Foldcut":
+        return L.Shape(L.foldcut)
+    if name in ("Contract", "Expand"):
+        return L.Shape(L.contract if name == "Contract" else L.expand, _def(a, 0, 2))
     if name == "nn.Upsample":
         if _def(a, 1, 2) != 2:
             raise ValueError("only 2x nearest upsample is used by the reference configs")
-        return L.Upsample2x()
+        return L.Shape(L.upsample_nearest_2x)
+    if name == "nn.BatchNorm2d":
+        return L.BN(s.c2)
+    if name == "ImplicitA":
+        return L.ImplicitA(s.c2)
+    if name == "ImplicitM":
+        return L.ImplicitM(s.c2)
+    if name == "TransformerBlock":
+        return L.TransformerBlock(*a)
+    if name == "Classify":
+        return L.Classify(_in_channels(s, spec), s.c2, _def(a, 0, 1), _def(a, 1, 1),
+                          _defn(a, 2, None), _def(a, 3, 1))
     if name == "Detect":
         return Detect(spec.nc, spec.na, s.c1)
     if name == "IDetect":
@@ -347,8 +428,7 @@ def _make_layer(s: LayerSpec, spec: ModelSpec, fused_tails: bool = False) -> nn.
         return IAuxDetect(spec.nc, spec.na, s.c1)
     if name == "IBin":
         return IBin(spec.nc, spec.na, s.c1, spec.bin_count)
-    raise NotImplementedError(
-        f"module {name!r} at layer {s.i} is not ported yet: {_LATER_ZOO}")
+    raise ValueError(f"unknown module {name!r} at layer {s.i}")
 
 
 class YoloModel(nn.Module):
@@ -369,39 +449,23 @@ class YoloModel(nn.Module):
         self.dtype = torch.float32
         self.model = nn.ModuleList([_make_layer(s, spec, fused_tails) for s in spec.layers])
 
-    def set_dtype(self, dtype: torch.dtype, cast_weights: bool = True) -> "YoloModel":
+    def set_dtype(self, dtype: torch.dtype, cast_weights: bool = True,
+                  head_dtype: torch.dtype = torch.float32) -> "YoloModel":
         """The body runs in ``dtype``; BN statistics and head stay fp32, the
-        head multiplies in ``dtype`` (layers.LogitConv). ``cast_weights``
+        head multiplies in ``dtype`` and emits ``head_dtype`` logits
+        (layers.LogitConv; JAX ``YoloModel.head_dtype``). ``cast_weights``
         (serving) casts the body convs' weights once; without it (training)
         they stay fp32 master weights, cast on every call
         (``layers.BodyConv2d``)."""
-        self.dtype = dtype
-        for m in self.modules():
-            if isinstance(m, L.BodyConv2d) and cast_weights:
-                m.to(dtype)
-            elif isinstance(m, L.LogitConv):
-                m.mult_dtype = dtype
-        return self
+        return set_dtype(self, dtype, cast_weights, head_dtype)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "YoloModel":
         """Seeded random init as the JAX package's: conv kernels
         normal(0, 0.02) (nets/yolo.py:120), BN scale normal(1, 0.02),
-        ImplicitA normal(0, 0.02), ImplicitM normal(1, 0.02)."""
-        for m in self.modules():
-            if isinstance(m, (L.ImplicitA, L.ImplicitM)):
-                mean = 1.0 if isinstance(m, L.ImplicitM) else 0.0
-                m.implicit.normal_(mean, 0.02, generator=generator)
-            elif isinstance(m, nn.Conv2d):
-                m.weight.normal_(0.0, 0.02, generator=generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
-                m.weight.normal_(1.0, 0.02, generator=generator)
-                m.bias.zero_()
-                m.running_mean.zero_()
-                m.running_var.fill_(1.0)
-        return self
+        ImplicitA normal(0, 0.02), ImplicitM normal(1, 0.02); linear and
+        attention kernels normal(0, 0.02), biases 0."""
+        return init_weights(self, generator)
 
     def forward(self, x: torch.Tensor):
         saved = {}
@@ -417,3 +481,87 @@ class YoloModel(nn.Module):
             if s.i in self.spec.save:
                 saved[s.i] = out
         return out
+
+
+def set_dtype(model: nn.Module, dtype: torch.dtype, cast_weights: bool = True,
+              head_dtype: torch.dtype = torch.float32) -> nn.Module:
+    """``YoloModel.set_dtype`` for any model of the port (also
+    ``nn/yolo_body.py``'s)."""
+    model.dtype = dtype
+    for m in model.modules():
+        if isinstance(m, L.BodyConv2d) and cast_weights:
+            m.to(dtype)
+        elif isinstance(m, L.LogitConv):
+            m.mult_dtype, m.out_dtype = dtype, head_dtype
+    return model
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """``YoloModel.init_weights`` for any model of the port."""
+    for m in model.modules():
+        if isinstance(m, (L.ImplicitA, L.ImplicitM)):
+            mean = 1.0 if isinstance(m, L.ImplicitM) else 0.0
+            m.implicit.normal_(mean, 0.02, generator=generator)
+        elif isinstance(m, (nn.Conv2d, nn.Linear, L.ConvTranspose)):
+            m.weight.normal_(0.0, 0.02, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.MultiheadAttention):
+            m.in_proj_weight.normal_(0.0, 0.02, generator=generator)
+            m.in_proj_bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.weight.normal_(1.0, 0.02, generator=generator)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+    return model
+
+
+def build_model(model_cfg, anchors, num_classes, image_chan=3, anchors_mask=None) -> YoloModel:
+    """cfg dict -> YoloModel (cf. Model.__init__, nets/yolo.py:95-112)."""
+    return YoloModel(build_model_spec(model_cfg, image_chan, anchors, num_classes, anchors_mask))
+
+
+def model_info(model: YoloModel):
+    """Per-layer table rows of ``Model.print_info`` (nets/yolo.py:127-141):
+    [index, from, n, params, module, arguments] per YAML row, and a summary.
+    Counts the ``nn.Parameter``s of each row's module, as JAX counts its
+    ``params`` tree: BN running statistics are buffers here and
+    ``batch_stats`` there, and neither is counted."""
+    rows, total = [], 0
+    for s, m in zip(model.spec.layers, model.model):
+        n_params = sum(p.numel() for p in m.parameters())
+        total += n_params
+        rows.append({"i": s.i, "from": s.f, "n": s.n, "params": n_params,
+                     "module": s.name, "arguments": list(s.args), "out_ch": s.c2})
+    return rows, {"layers": len(model.spec.layers), "parameters": total}
+
+
+def model_gflops(model: YoloModel, image_size: int = 640) -> float:
+    """Convolution and matmul GFLOPs of one inference forward of one image at
+    ``image_size``, as JAX counts them off the jaxpr: 2 * out * (cin/g * kh *
+    kw) a convolution, 2 * out * k a matmul. ``FlopCounterMode`` counts the
+    same over a forward of the model's spec built on the meta device (shapes
+    only, no memory, no kernel)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with torch.device("meta"):
+        meta = YoloModel(model.spec).eval()
+        x = torch.zeros(1, model.spec.layers[0].c1, image_size, image_size)
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter:
+        meta(x)
+    return counter.get_total_flops() / 1e9
+
+
+def format_model_info(model: YoloModel, image_size: int = 640) -> str:
+    """JAX ``format_model_info``'s text. Unlike JAX, which drops the GFLOPs
+    figure when its count raises, an error of ``model_gflops`` propagates."""
+    rows, summary = model_info(model)
+    lines = [f"{'':>3}{'from':>18}{'n':>3}{'params':>10}  {'module':<22}{'arguments'}"]
+    for r in rows:
+        lines.append(f"{r['i']:>3}{str(r['from']):>18}{r['n']:>3}"
+                     f"{r['params']:>10}  {r['module']:<22}{r['arguments']}")
+    lines.append(f"Model Summary: {summary['layers']} layers, {summary['parameters']} parameters, "
+                 f"{model_gflops(model, image_size):.1f} GFLOPs @ {image_size}px")
+    return "\n".join(lines)

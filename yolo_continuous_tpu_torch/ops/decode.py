@@ -9,7 +9,9 @@ flattens to ``(bs, h*w*na, no)`` rows in (h, w, na) order, the JAX order
 (``kernels/decode.py``, ``csrc/decode.cu``), ``decode_level_bin`` that of
 kernel K4 (``kernels/bin_decode.py``, ``csrc/bin_decode.cu``).
 ``decode_outputs`` and ``decode_outputs_bin`` send CPU tensors to them and
-CUDA tensors to the kernels.
+CUDA tensors to the kernels, after casting the maps to fp32 as JAX does
+(``decode.py:37, 83``): a ``head_dtype=bfloat16`` head's maps become fp32
+maps with the same strides, which the kernels' TMA form reads.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ def decode_outputs(preds: Sequence[torch.Tensor], anchors: Sequence, strides: Se
     """All levels -> ``(bs, total, no)``; cf. detect.py:229-230 torch.cat.
 
     CUDA tensors go through kernel K3; CPU tensors through ``decode_level``."""
+    preds = [p.float() for p in preds]
     device = preds[0].device
     _check_device(device)
     if device.type == "cuda":
@@ -98,6 +101,7 @@ def decode_outputs_bin(preds: Sequence[torch.Tensor], anchors: Sequence,
     """All IBin levels -> ``(bs, total, 5+nc)``.
 
     CUDA tensors go through kernel K4; CPU tensors through ``decode_level_bin``."""
+    preds = [p.float() for p in preds]
     device = preds[0].device
     _check_device(device)
     if device.type == "cuda":

@@ -4,11 +4,20 @@ Counterpart of ``yolo_continuous_tpu/tools/torch_import.export_state_dict``:
 the JAX package's (params, batch_stats) trees, as nested dicts of numpy
 arrays, become a ``state_dict`` of the port's ``YoloModel`` that loads with
 ``load_state_dict(strict=True)``. ``_rewrite_tokens``, ``_torch_key`` (the
-first of ``_candidates``) and ``_invert_value`` are this package's own
-copies of the JAX package's name rules (``torch_import.py:37-121,
+first of ``_candidates``), ``_body_key`` (the first of
+``_body_candidates``) and ``_invert_value`` are this package's own copies
+of the JAX package's name rules (``torch_import.py:37-121, 203-236,
 301-310``), so the port imports nothing of it. ``num_batches_tracked``,
-which export never writes and
-``nn.BatchNorm2d`` expects, is added as 0 for every BatchNorm.
+which export never writes and ``nn.BatchNorm2d`` expects, is added as 0 for
+every BatchNorm.
+
+Two rules are the port's own, because ``export_state_dict`` has none for
+the transformer: flax's attention ``ma`` (``query``/``key``/``value``
+kernels ``(c, heads, hd)`` and biases ``(heads, hd)``, ``out`` kernel
+``(heads, hd, c)``) becomes torch's ``ma.in_proj_weight`` ``(3c, c)``,
+``ma.in_proj_bias`` and ``ma.out_proj``; and the layers ``tr{i}`` become the
+reference's ``tr.{i}``. ``body_state_dict_from_jax`` does the same for the
+``nn/yolo_body.py`` family (YoloBody, Backbone, LayoutBody).
 """
 from __future__ import annotations
 
@@ -67,6 +76,9 @@ def _rewrite_tokens(rest):
             out.append(f"conv.{t[4:]}")
         elif re.fullmatch(r"short\d+", t):
             out.append(f"shortcut.{t[5:]}")
+        # the port's own rule: TransformerBlock's layers tr0 -> tr.0
+        elif re.fullmatch(r"tr\d+", t):
+            out.append(f"tr.{t[2:]}")
         else:
             out.append(t)
         i += 1
@@ -111,22 +123,76 @@ def _invert_value(leaf: str, ours: np.ndarray) -> np.ndarray:
     return t
 
 
+def _attention(ma) -> Dict[str, np.ndarray]:
+    """flax ``MultiHeadDotProductAttention`` params -> torch's
+    ``nn.MultiheadAttention`` leaves (their names need no rewrite, their
+    values no ``_invert_value``): output feature ``h * hd + d`` of the
+    in-projection is flax's ``[h, d]``."""
+    c = np.shape(ma["query"]["kernel"])[0]
+    qkv = ("query", "key", "value")
+    return {"in_proj_weight": np.concatenate(
+                [np.asarray(ma[n]["kernel"]).reshape(c, -1).T for n in qkv], 0),
+            "in_proj_bias": np.concatenate([np.asarray(ma[n]["bias"]).reshape(-1) for n in qkv]),
+            "out_proj.weight": np.asarray(ma["out"]["kernel"]).reshape(-1, c).T,
+            "out_proj.bias": np.asarray(ma["out"]["bias"])}
+
+
 def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
     for k in sorted(tree):
         v = tree[k]
-        if isinstance(v, Mapping):
+        if k == "ma" and isinstance(v, Mapping) and "query" in v:
+            for name, val in _attention(v).items():
+                yield prefix + (k, name), val
+        elif isinstance(v, Mapping):
             yield from _leaves(v, prefix + (k,))
         else:
             yield prefix + (k,), np.asarray(v)
 
 
-def state_dict_from_jax(spec: ModelSpec, params, batch_stats) -> Dict[str, torch.Tensor]:
-    """(params, batch_stats) nested dicts of arrays -> the port's state_dict."""
+def _state_dict(trees, key_of) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
-    for tree in (params, batch_stats or {}):
-        for path, val in _leaves(tree):
-            key = _torch_key(path[:-1], path[-1], spec)
-            out[key] = torch.from_numpy(np.array(_invert_value(path[-1], val)))
+    for tree in trees:
+        for path, val in _leaves(tree or {}):
+            out[key_of(path[:-1], path[-1])] = torch.from_numpy(
+                np.array(_invert_value(path[-1], val)))
     for key in [k for k in out if k.endswith(".running_mean")]:
         out[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def state_dict_from_jax(spec: ModelSpec, params, batch_stats) -> Dict[str, torch.Tensor]:
+    """(params, batch_stats) nested dicts of arrays -> the port's state_dict."""
+    return _state_dict((params, batch_stats), lambda path, leaf: _torch_key(path, leaf, spec))
+
+
+def _body_key(path_tokens, leaf) -> str:
+    """Torch key of a YoloBody/Backbone/LayoutBody path: the canonical (first)
+    candidate of ``torch_import._body_candidates`` (``torch_import.py:203-236``):
+    the reference's Sequential stages ``stem.{i}``, ``dark{n}.0`` (conv or
+    Transition), ``dark{n}.1`` (Block) and Block's ``cv3.{i}``."""
+    toks = []
+    for t in path_tokens:
+        m = re.fullmatch(r"stem(\d)", t)
+        if m:
+            toks += ["stem", m.group(1)]
+            continue
+        m = re.fullmatch(r"(dark\d+)_(conv|tr)", t)
+        if m:
+            toks += [m.group(1), "0"]
+            continue
+        m = re.fullmatch(r"(dark\d+)_block", t)
+        if m:
+            toks += [m.group(1), "1"]
+            continue
+        m = re.fullmatch(r"cv(\d)_(\d+)", t)
+        if m:
+            toks += [f"cv{m.group(1)}", m.group(2)]
+            continue
+        toks.append(t)
+    return ".".join(_rewrite_tokens(toks) + [_LEAF_TORCH.get(leaf, leaf)])
+
+
+def body_state_dict_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
+    """A YoloBody/Backbone/LayoutBody (params, batch_stats) pair -> the state
+    dict of the port's ``nn/yolo_body.py`` model of the same shape."""
+    return _state_dict((params, batch_stats), _body_key)

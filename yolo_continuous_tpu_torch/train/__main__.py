@@ -15,7 +15,7 @@ def main(argv=None):
                     help="train-plan YAML (default: cfg/voc_train.yaml)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--verbose", action="store_true",
-                    help="print the per-layer param table (not ported yet: ROADMAP item 7)")
+                    help="print the per-layer param table first")
     args = ap.parse_args(argv)
     return train(check_file(args.cfg), verbose=args.verbose, device=args.device)
 

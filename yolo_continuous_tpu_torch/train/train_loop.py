@@ -5,7 +5,10 @@ Counterpart of ``yolo_continuous_tpu/train/train_loop.py`` (``Trainer``:
 the eval loss, ``augment``, ``run``, ``validate_map``; ``train``). One
 ``train_step`` runs, in the order of the JAX step:
 forward in train mode (BN on batch statistics, running statistics updated)
--> ``yolo_loss`` -> backward -> optimizer step -> EMA update -> step + 1.
+-> ``yolo_loss`` (IBin heads: ``losses/bin_loss.bin_yolo_loss``, as JAX
+``train_loop.py:166-168``) -> backward -> optimizer step -> EMA update ->
+step + 1. Nets of 4 levels (P6) train as the 3-level ones do; the
+IAuxDetect aux loss runs on every level.
 
 ``run`` trains from the plan as JAX ``train_loop.py:231-409`` does: the
 datasets (``data/dataset.py``), the device augmentation
@@ -26,10 +29,8 @@ master weights (``nn/layers.BodyConv2d``); the head logits and the loss are
 fp32. No autocast: its rounding differs from JAX's. TF32 is off on CUDA, as
 in the ``Detector``.
 
-Not ported yet: the IBin loss (``bin_yolo_loss``, ROADMAP.md Queue 1 item
-14); ``remat``, ``bn_remat``, ``xla_opts`` and the mesh (item 19);
-``train(verbose=True)``, which needs ``format_model_info`` (item 7); the
-perspective augmentation (item 16).
+Not ported yet: ``remat``, ``bn_remat``, ``xla_opts`` and the mesh
+(ROADMAP.md Queue 1 item 19); the perspective augmentation (item 16).
 """
 from __future__ import annotations
 
@@ -43,8 +44,9 @@ import torch
 from ..config.plan import TrainPlan, cvt_cfg
 from ..data.dataset import PrefetchLoader, YoloDataset, load_annotation_file
 from ..detect_api import resolve_device
+from ..losses.bin_loss import bin_yolo_loss
 from ..losses.yolo_loss import LossConfig, yolo_loss
-from ..nn.builder import YoloModel, build_model_spec
+from ..nn.builder import YoloModel, build_model_spec, format_model_info
 from ..ops.augment import (BatchDraw, aug_config_from_plan, augment_batch,
                            augment_batch_from_pool, draw_batch, to_device)
 from ..ops.schedules import LRSchedule
@@ -70,9 +72,6 @@ class Trainer:
         self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda" else torch.float32)
         self.spec = build_model_spec(cvt_cfg(plan.model_cfg), plan.image_chan, plan.anchors,
                                      plan.num_labels, plan.anchors_mask)
-        if self.spec.head_name == "IBin":
-            raise NotImplementedError("training an IBin head (bin_yolo_loss) is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 14)")
         self.model = YoloModel(self.spec).to(self.device).set_dtype(self.dtype,
                                                                     cast_weights=False)
         self.nl = len(self.spec.strides)
@@ -135,6 +134,8 @@ class Trainer:
 
     def loss_from_outputs(self, outs, labels, lmask):
         lead, aux = self._split_heads(outs)
+        if self.spec.head_name == "IBin":
+            return bin_yolo_loss(lead, labels, lmask, self.loss_cfg)
         return yolo_loss(lead, labels, lmask, self.loss_cfg, aux_preds=aux)
 
     def _inputs(self, images, labels, lmask):
@@ -147,7 +148,8 @@ class Trainer:
     def train_step(self, state, images, labels, lmask, lr_w: float, lr_b: float, mom: float):
         """One step of ``Trainer.train_step_fn``: images (bs, H, W, 3) float
         0..1, labels (bs, max_gt, 5), lmask (bs, max_gt). Returns (state,
-        {"loss", "box", "obj", "cls", "num_fg"}), values as 0-d tensors."""
+        {"loss", "box", "obj", "cls", "num_fg"}, and "bin" for IBin heads),
+        values as 0-d tensors."""
         x, labels, lmask = self._inputs(images, labels, lmask)
         model, opt = state["model"], state["opt"]
         model.train()
@@ -370,8 +372,11 @@ class Trainer:
 
 def train(train_cfg_file: str, verbose: bool = False, device="cuda", **kw):
     """Public API mirroring ``train.py:23``: train from a plan YAML on
-    ``device`` and return the final state."""
+    ``device`` and return the final state. ``verbose`` prints the per-layer
+    parameter table first (``nn/builder.format_model_info``, GFLOPs at the
+    plan's image size)."""
+    plan = TrainPlan(train_cfg_file)
+    trainer = Trainer(plan, device=device, **kw)
     if verbose:
-        raise NotImplementedError("the per-layer parameter table (format_model_info) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 7)")
-    return Trainer(TrainPlan(train_cfg_file), device=device, **kw).run()
+        print(format_model_info(trainer.model, plan.image_size))
+    return trainer.run()
