@@ -98,6 +98,35 @@ failure exits non-zero before the result line.
    and YoloBody 'l' and 'x' at 64 px on the card against the CPU in fp32
    (maps within 1e-4); one timed forward of YoloBody 'x' at 640, batch 16,
    bf16.
+8. serve: int8 PTQ and the serving layer. The int8 Conv's card routes
+   (``nn/quant.py``) against the plain version (fp64 on the CPU) from the
+   same input, amax and fp32 weights at four yolov7 @640 shapes (the stem,
+   a 3x3 stride 2, a 1x1 with C_in 1024, a grouped 3x3), int32 sums and
+   outputs bit-equal; a 64 px yolov7 ``Detector(quantize=True)`` in fp32 on
+   the card against the CPU (maps within 1e-2 relative L2, K1's keep-set
+   equal to the plain one on the card's rows). Then yolov7 @640 on
+   ``cfg/coco_train.yaml`` with spread weights from a seed, served by one
+   ``make_multi_server`` (batch 16, max_wait 5 ms, conf 0.25, IoU 0.45,
+   max_det 100) as two models: ``bf16`` and ``int8``
+   (``Detector(quantize=True)`` calibrated on 16 synthetic 640 px images).
+   Direct calls first: int8 against bf16 request ms in 10 alternating
+   turns, device ms a batch, peak memory, launches (profiler), quantized
+   Convs and the share of bf16's kept detections that int8 keeps. Then a
+   child process (its own interpreter) runs 64 client threads: 256 JPEGs
+   of 640 x 480 and 480 x 640 a model (every 32nd urgent), one 32-frame
+   ``/detect/bf16/stream`` (answers in frame order), one chunked body; at
+   half way a second seeded state dict is saved as ``bf16.pth`` and ``POST
+   /models/bf16/reload`` swaps it in. Every answer must be JSON without
+   ``error``; ``/stats`` must count what was sent; 8 images' answers must
+   equal direct calls bit for bit, before the traffic and after it (bf16
+   against a fresh Detector on the new weights); K3 (TMA form) and K1 must
+   launch exactly once a served batch (counters at 0 around the window);
+   the watcher (``reload_every``) must load a ``.train.pt`` written by
+   ``train/checkpoint.save_checkpoint``. Prints ``serve_int8_on_card``,
+   ``serve_direct`` and ``serve`` JSON lines (requests/s, batch fill,
+   latency percentiles from ``/stats``, host and call ms a batch, launches).
+   ``python3 chip_smoke.py --only serve`` builds and runs this phase alone
+   (no result line).
 
 Kernel times are device times: ``cuda_ms`` holds the stream with a sleep
 kernel while the host enqueues the timed calls, so that a kernel shorter
@@ -105,8 +134,9 @@ than its wrapper's host time is not timed at the host's pace.
 
 Before the last line it prints the ``kernels`` JSON line (time, bound,
 error of each kernel; ``launches`` on phase 4's main paths,
-``launches_validate_map`` on phase 6's ``validate_map`` calls and
-``launches_model_zoo`` on phase 7's counted requests; K3's 4-level time and
+``launches_validate_map`` on phase 6's ``validate_map`` calls,
+``launches_model_zoo`` on phase 7's counted requests and ``launches_serve``
+on phase 8's serving window; K3's 4-level time and
 bound at the P6 shape) and the card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 import copy
@@ -1720,7 +1750,503 @@ def phase_model_zoo():
     return total, k3
 
 
+# ---------------------------------------------------------------- phase 8
+
+SERVE_MAX_DET = 100        # BatchingEngine's default max_det
+SERVE_WAIT_MS = 5.0
+SERVE_CLIENTS, SERVE_PER_MODEL, SERVE_URGENT_EVERY = 64, 256, 32
+STREAM_FRAMES = 32
+# int8 on the card against the CPU, fp32, 64 px: the int32 sums are exact on
+# both, but the float ops around them (BN, SiLU, the fp32 head) differ by
+# ulps, and an input an ulp either side of a rounding midpoint quantizes one
+# step apart; the bar of tests/test_torch_port_quantize.py against JAX
+INT8_REL_L2 = 1e-2
+# yolov7 @640 int8 Conv shapes held bit for bit against the plain version
+# (batch 2: the plain fp64 convolution runs on the CPU)
+INT8_CONV_SHAPES = [("stem 3->32 3x3", (2, 3, 640, 640), (32, 3, 3, 3), 1, 1, 1),
+                    ("3x3 stride 2, 32->64", (2, 32, 640, 640), (64, 32, 3, 3), 2, 1, 1),
+                    ("1x1 1024->512", (2, 1024, 20, 20), (512, 1024, 1, 1), 1, 0, 1),
+                    ("3x3 grouped 64->64 g=8", (2, 64, 80, 80), (64, 8, 3, 3), 1, 1, 8)]
+
+
+def int8_conv_on_card() -> list:
+    """The int8 Conv's card routes against the plain version (CPU, fp64) from
+    the same x, amax and fp32 weights: int32 sums and outputs bit-equal."""
+    import torch
+    from yolo_continuous_tpu_torch.nn import quant as Q
+    recs = []
+    for label, xs, ws, s, p, g in INT8_CONV_SHAPES:
+        gen = torch.Generator().manual_seed(sum(xs) + sum(ws))
+        x = (torch.randn(xs, generator=gen) * 2).to(torch.bfloat16)
+        w = torch.randn(ws, generator=gen) * ws[1] ** -0.5
+        sx = Q.activation_scale(x.abs().amax().float() * 0.9)        # some inputs clip
+        wq, sw = Q.quantize_weight(w)
+        wq_g, sw_g = Q.quantize_weight(w.cuda())
+        if not (torch.equal(wq_g.cpu(), wq) and torch.equal(sw_g.cpu(), sw)):
+            fail(f"int8 {label}: the weights quantize differently on the card")
+        mat = Q.gemm_weight(wq_g) if g == 1 else None
+        xg, sxg = x.cuda(), sx.cuda()
+        route = Q.route_for(xs, ws, s, p, g)
+        got = Q.accumulators_cuda(xg, sxg, wq_g, mat, s, p, g)
+        want = Q.accumulators_plain(x, sx, wq, s, p, g)
+        if not torch.equal(got.cpu(), want):
+            fail(f"int8 {label} ({route}): int32 sums differ from the plain version in "
+                 f"{int((got.cpu() != want).sum())} places")
+        out = Q.dequantize(got, sxg, sw_g, torch.bfloat16)
+        if not torch.equal(out.cpu(), Q.dequantize(want, sx, sw, torch.bfloat16)):
+            fail(f"int8 {label} ({route}): outputs differ from the plain version")
+        ms = cuda_ms(lambda: Q.dequantize(Q.accumulators_cuda(xg, sxg, wq_g, mat, s, p, g),
+                                          sxg, sw_g, torch.bfloat16), iters=5)
+        recs.append(dict(shape=label, x=list(xs), route=route, bit_equal=True, ms=ms,
+                         max_abs_sum=int(want.abs().max())))
+    return recs
+
+
+def int8_detector_on_card() -> dict:
+    """yolov7 @64 Detector(quantize=True), fp32, on the card against the same
+    one on the CPU, the CPU's scales on both: maps within INT8_REL_L2, and
+    the NMS keep-set of K1 equal to the plain one on the card's rows."""
+    import torch
+    from yolo_continuous_tpu_torch.config.plan import cvt_cfg
+    from yolo_continuous_tpu_torch.detect_api import Detector
+    from yolo_continuous_tpu_torch.nn.builder import YoloModel, build_model_spec
+    from yolo_continuous_tpu_torch.ops.decode import decode_outputs
+    from yolo_continuous_tpu_torch.ops.nms import suppress, suppress_plain, top_candidates
+    plan = random_weights_plan()
+    plan.image_size = 64
+    spec = build_model_spec(cvt_cfg(plan.model_cfg), plan.image_chan, plan.anchors,
+                            plan.num_labels, plan.anchors_mask)
+    sd = spread_weights(YoloModel(spec).state_dict(), 1)
+    kw = dict(dtype=torch.float32, state_dict=sd, quantize=True)
+    cpu, gpu = Detector(plan, device="cpu", **kw), Detector(plan, device="cuda", **kw)
+    x = np.random.RandomState(1).rand(2, 64, 64, 3).astype("float32")
+    gpu.load_quant_state(cpu.calibrate(x))
+    maps_c, maps_g = cpu.forward(x), gpu.forward(x)
+    rel = [float((g.cpu().double() - c.double()).norm() / c.double().norm())
+           for c, g in zip(maps_c, maps_g)]
+    if len(maps_g) != 3 or not max(rel) <= INT8_REL_L2:
+        fail(f"int8 yolov7 @64: card maps differ from the CPU's by rel L2 {rel}")
+    with torch.inference_mode():
+        pred = decode_outputs(maps_g, gpu.spec.anchors, gpu.spec.strides)
+        boxes, _, classes, valid = top_candidates(pred, 0.01, min(300, pred.shape[1]))
+        keep = suppress(boxes, classes, valid, IOU)
+        if not torch.equal(keep, suppress_plain(boxes, classes, valid, IOU)):
+            fail("int8 yolov7 @64: K1's keep-set differs from the plain version's")
+    return dict(maps_rel_l2=rel, max_abs_diff=max(float((g.cpu() - c).abs().max())
+                                                  for c, g in zip(maps_c, maps_g)),
+                tol_rel_l2=INT8_REL_L2, valid=int(valid.sum()), kept=int(keep.sum()),
+                quantized_convs=len(gpu.model.quant_convs()))
+
+
+def serve_images(n: int = 16):
+    """``n`` synthetic RGB images from RandomState(0), 640 x 480 and 480 x 640
+    in turn (blocky noise with a few filled boxes), their JPEG bytes, and
+    the RGB arrays the server decodes from those bytes."""
+    import cv2
+    rs = np.random.RandomState(0)
+    jpegs, rgbs = [], []
+    for i in range(n):
+        h, w = (480, 640) if i % 2 == 0 else (640, 480)
+        img = cv2.resize(rs.randint(0, 256, (h // 16, w // 16, 3)).astype(np.uint8), (w, h))
+        for _ in range(4):
+            x1, y1 = int(rs.randint(0, w - 64)), int(rs.randint(0, h - 64))
+            cv2.rectangle(img, (x1, y1), (x1 + int(rs.randint(32, 200)),
+                                          y1 + int(rs.randint(32, 200))),
+                          tuple(int(c) for c in rs.randint(0, 256, 3)), -1)
+        enc = cv2.imencode(".jpg", img)[1]
+        jpegs.append(enc.tobytes())
+        rgbs.append(cv2.cvtColor(cv2.imdecode(enc, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))
+    return jpegs, rgbs
+
+
+def letterboxed(rgbs):
+    """(16, 640, 640, 3) float 0..1 on the card: the images letterboxed as the
+    engine letterboxes them, zero rows after them as the engine pads."""
+    import torch
+    from yolo_continuous_tpu_torch.ops.preprocess import letterbox
+    x = np.zeros((BS, SIZE, SIZE, 3), np.float32)
+    for i, rgb in enumerate(rgbs):
+        x[i] = letterbox(rgb, (SIZE, SIZE), (114, 114, 114))[0].astype(np.float32) / 255.0
+    return torch.from_numpy(x).cuda()
+
+
+def direct_answers(det, rgbs):
+    """A direct Detector call on the letterboxed images (a batch of 16, as
+    served), mapped to each image's pixels by ``yolo_correct_boxes_np``
+    through the engine's ``answers``."""
+    import torch
+    from yolo_continuous_tpu_torch.serve import answers, detect_rows
+    with torch.inference_mode():
+        rows = detect_rows(det, letterboxed(rgbs), CONF, IOU, SERVE_MAX_DET)
+    return answers(rows, [r.shape[:2] for r in rgbs], (SIZE, SIZE), det.plan.labels)
+
+
+def http_post(conn, path, body, headers=None, **kw):
+    conn.request("POST", path, body=body, headers=headers or {}, **kw)
+    r = conn.getresponse()
+    return r.status, json.loads(r.read())
+
+
+def probe(port, model, jpegs) -> list:
+    """The answers of ``model`` for ``jpegs``, posted at once, in order."""
+    import http.client
+    import threading
+    out = [None] * len(jpegs)
+
+    def one(i):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        out[i] = http_post(conn, f"/detect/{model}", jpegs[i])
+        conn.close()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(jpegs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i, (code, body) in enumerate(out):
+        if code != 200 or "error" in body:
+            fail(f"serve {model}: probe {i} answered {code} {str(body)[:200]}")
+    return [body for _, body in out]
+
+
+def check_answers(label, got, want):
+    """Served answers against direct calls: equal bit for bit. The served
+    batch and the direct call have the same shape (16), so every kernel and
+    cuDNN algorithm is the same, and no image's sums depend on another's."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            fail(f"serve {label}: image {i}'s answer differs from the direct call "
+                 f"({len(g['scores'])} against {len(w['scores'])} detections)")
+
+
+def kept_share(out_a, out_b, iou: float = 0.5):
+    """Share of ``out_a``'s kept detections that ``out_b`` keeps too (same
+    class, IoU >= ``iou``), over the batch."""
+    from yolo_continuous_tpu_torch.ops.boxes import box_iou
+    hit = total = 0
+    for b in range(out_a[0].shape[0]):
+        (ba, ca), (bb, cb) = ((o[0][b][o[3][b]], o[2][b][o[3][b]]) for o in (out_a, out_b))
+        total += len(ba)
+        if len(ba) and len(bb):
+            m = (box_iou(ba[None], bb[None])[0] >= iou) & (ca[:, None] == cb[None, :])
+            hit += int(m.any(1).sum())
+    return hit / max(total, 1), total
+
+
+def direct_measurements(dets: dict, x) -> dict:
+    """int8 against bf16 on direct calls at batch 16 (before any traffic):
+    request ms in 10 alternating turns (host-paced), device ms a batch (stream
+    held), peak memory, launches (profiler) and int8 routes a request, and
+    the share of bf16's kept detections that int8 keeps."""
+    import torch
+    from yolo_continuous_tpu_torch.nn import quant as Q
+    rec = {name: {} for name in dets}
+    with torch.inference_mode():
+        turns = {name: [] for name in dets}
+        for t in range(10):
+            for name in (list(dets) if t % 2 == 0 else list(dets)[::-1]):
+                turns[name].append(cuda_ms(lambda: dets[name](x, CONF, IOU, SERVE_MAX_DET),
+                                           iters=3, warmup=1, hold=False))
+        for name, det in dets.items():
+            r = rec[name]
+            r["request_ms_turns"] = dict(median=float(np.median(turns[name])),
+                                         min=min(turns[name]), max=max(turns[name]))
+            r["device_ms_per_batch"] = cuda_ms(lambda: det(x, CONF, IOU, SERVE_MAX_DET), iters=5)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            Q.route_calls.clear()
+            det(x, CONF, IOU, SERVE_MAX_DET)
+            torch.cuda.synchronize()
+            r["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            r["request_memory_gb"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            r["int8_route_calls"] = dict(Q.route_calls)
+            prof = profile_window(lambda: det(x, CONF, IOU, SERVE_MAX_DET), calls=2)
+            r["launches_per_request"] = prof.get("launches_per_call")
+            r["profile_device_ms"] = prof.get("device_ms")
+            r["busy_share"] = prof.get("busy_share")
+            r["top_kernels_ms"] = prof.get("top", [])[:6]
+        share, n = kept_share(dets["bf16"](x, CONF, IOU, SERVE_MAX_DET),
+                              dets["int8"](x, CONF, IOU, SERVE_MAX_DET))
+    rec["int8"]["kept_share_of_bf16"] = share
+    rec["int8"]["bf16_kept"] = n
+    rec["int8"]["quantized_convs"] = len(dets["int8"].model.quant_convs())
+    return rec
+
+
+def serve_traffic(port, jpegs, on_half) -> dict:
+    """SERVE_CLIENTS threads, each on its own keep-alive connection, post
+    SERVE_PER_MODEL JPEGs to each model (every SERVE_URGENT_EVERY-th urgent),
+    in a seeded order; ``on_half`` runs once half of them are answered.
+    Meanwhile one /detect/bf16/stream of STREAM_FRAMES frames and one
+    chunked /detect/int8 body. Fails on any answer that is not JSON without
+    ``error``. Returns what was sent and the window's wall time."""
+    import http.client
+    import queue
+    import struct
+    import threading
+    rs = np.random.RandomState(1)
+    work = [(m, int(rs.randint(len(jpegs))), i % SERVE_URGENT_EVERY == 7)
+            for m in ("bf16", "int8") for i in range(SERVE_PER_MODEL)]
+    q = queue.Queue()
+    for k in rs.permutation(len(work)):
+        q.put(work[k])
+    errors, lock = [], threading.Lock()
+    done = [0]
+    half = threading.Event()
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        while True:
+            try:
+                model, idx, urgent = q.get_nowait()
+            except queue.Empty:
+                break
+            try:
+                code, body = http_post(conn, f"/detect/{model}"
+                                       + ("?priority=urgent" if urgent else ""), jpegs[idx])
+                if code != 200 or "error" in body:
+                    raise RuntimeError(f"{code} {str(body)[:200]}")
+            except Exception as e:
+                with lock:
+                    errors.append(f"{model}: {type(e).__name__}: {e}")
+            with lock:
+                done[0] += 1
+                if done[0] == len(work) // 2:
+                    half.set()
+        conn.close()
+
+    def stream():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        body = b"".join(struct.pack(">I", len(jpegs[i % len(jpegs)])) + jpegs[i % len(jpegs)]
+                        for i in range(STREAM_FRAMES))
+        conn.request("POST", "/detect/bf16/stream", body=body)
+        lines = [json.loads(s) for s in conn.getresponse().read().decode().splitlines()]
+        conn.close()
+        frames = [ln.get("frame") for ln in lines[:-1]]
+        if lines[-1] != {"done": True, "frames": STREAM_FRAMES} or \
+                frames != list(range(STREAM_FRAMES)) or any("error" in ln for ln in lines):
+            with lock:
+                errors.append(f"stream: frames {frames}, last {lines[-1:]}")
+
+    def chunked():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        data = jpegs[0]
+        code, body = http_post(conn, "/detect/int8", (data[i:i + 4096]
+                                                      for i in range(0, len(data), 4096)),
+                               {"Transfer-Encoding": "chunked"}, encode_chunked=True)
+        conn.close()
+        if code != 200 or "error" in body:
+            with lock:
+                errors.append(f"chunked: {code} {str(body)[:200]}")
+
+    threads = [threading.Thread(target=client) for _ in range(SERVE_CLIENTS)]
+    threads += [threading.Thread(target=stream), threading.Thread(target=chunked)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if not half.wait(120):
+        fail("serve: half of the traffic was not answered in 120 s")
+    on_half()
+    for t in threads:
+        t.join()
+    wall_s = time.perf_counter() - t0
+    if errors:
+        fail(f"serve: {len(errors)} failed requests, e.g. {errors[:3]}")
+    sent = {m: sum(1 for w in work if w[0] == m) for m in ("bf16", "int8")}
+    sent["bf16"] += STREAM_FRAMES
+    sent["int8"] += 1
+    urgent = {m: sum(1 for w in work if w[0] == m and w[2]) for m in ("bf16", "int8")}
+    return dict(sent=sent, urgent=urgent, wall_s=wall_s)
+
+
+def traffic_in_child(port, jpegs, root, on_half) -> dict:
+    """``serve_traffic`` in a child process (``--serve-clients``), so that
+    the clients' threads do not share the server's interpreter lock;
+    ``on_half`` runs here when the child reports half of its requests
+    answered. The child is waited for, or killed, before this returns."""
+    import pickle
+    path = os.path.join(root, "jpegs.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(jpegs, f)
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--serve-clients",
+                              str(port), path], stdout=subprocess.PIPE, text=True, cwd=HERE)
+    try:
+        lines = []
+        for line in child.stdout:
+            if line.strip() == "HALF":
+                on_half()
+            else:
+                lines.append(line)
+        if child.wait(timeout=300) != 0:
+            fail(f"serve: the client process exited {child.returncode}")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    return json.loads(lines[-1])
+
+
+def serve_clients(port: int, path: str) -> None:
+    """The ``--serve-clients`` child: ``serve_traffic`` on the pickled JPEGs,
+    "HALF" on a line of its own at half way, the result JSON last."""
+    import pickle
+    with open(path, "rb") as f:
+        jpegs = pickle.load(f)
+    res = serve_traffic(port, jpegs, lambda: print("HALF", flush=True))
+    print(json.dumps(res), flush=True)
+
+
+def phase_serve():
+    """Phase 8: the serving layer and int8 PTQ serving on the card."""
+    import http.client
+    import shutil
+    import socket
+    import threading
+    import torch
+    from yolo_continuous_tpu_torch.config.plan import cvt_cfg
+    from yolo_continuous_tpu_torch.detect_api import Detector
+    from yolo_continuous_tpu_torch.nn import quant as Q
+    from yolo_continuous_tpu_torch.nn.builder import YoloModel, build_model_spec
+    from yolo_continuous_tpu_torch.serve import make_multi_server
+    from yolo_continuous_tpu_torch.train.checkpoint import save_checkpoint, train_checkpoint_path
+    from yolo_continuous_tpu_torch.train.ema import ModelEMA
+    t_phase = time.perf_counter()
+    rec = dict(int8_conv=int8_conv_on_card(), int8_reference=int8_detector_on_card())
+    print(json.dumps({"serve_int8_on_card": rec}), flush=True)
+
+    root = os.path.join(HERE, "runs", "chip_smoke_serve")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    plans = {}
+    for name in ("bf16", "int8"):
+        plans[name] = random_weights_plan()
+        plans[name].save_path = os.path.join(root, f"{name}.msgpack")
+    spec = build_model_spec(cvt_cfg(plans["bf16"].model_cfg), 3, plans["bf16"].anchors,
+                            plans["bf16"].num_labels, plans["bf16"].anchors_mask)
+    weights_a = spread_weights(YoloModel(spec).state_dict(), 11)
+    weights_b = spread_weights(YoloModel(spec).state_dict(), 12)
+    jpegs, rgbs = serve_images(BS)
+    x = letterboxed(rgbs)
+    dets = {"bf16": Detector(plans["bf16"], device="cuda", state_dict=weights_a),
+            "int8": Detector(plans["int8"], device="cuda", state_dict=weights_a, quantize=True)}
+    t0 = time.perf_counter()
+    dets["int8"].calibrate(x)                        # 16 synthetic 640 px images
+    rec["calibrate_s"] = time.perf_counter() - t0
+    rec["direct"] = direct_measurements(dets, x)
+    print(json.dumps({"serve_direct": rec["direct"]}), flush=True)
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    srv = make_multi_server({n: (plans[n], d) for n, d in dets.items()}, port=port,
+                            batch_size=BS, max_wait_ms=SERVE_WAIT_MS, conf=CONF, nms=IOU,
+                            reload_every=0.25)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        for name in dets:
+            check_answers(f"{name} before the traffic", probe(port, name, jpegs[:8]),
+                          direct_answers(dets[name], rgbs[:8]))
+        before = {n: e.stats() for n, e in srv.engines.items()}
+        batch_times = {n: len(e.batch_times) for n, e in srv.engines.items()}
+
+        def reload_b():
+            # written as a trainer writes (a temporary file, then a rename), so
+            # the watcher never reads half a file
+            torch.save(weights_b, os.path.join(root, "bf16.pth.tmp"))
+            os.replace(os.path.join(root, "bf16.pth.tmp"), os.path.join(root, "bf16.pth"))
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            code, body = http_post(conn, "/models/bf16/reload", b"")
+            conn.close()
+            if code != 200 or body.get("reloaded") is not True:
+                fail(f"serve: reload answered {code} {body}")
+
+        torch.cuda.synchronize()
+        for k in counters():
+            k.launches = 0
+        traffic = traffic_in_child(port, jpegs, root, reload_b)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in counters()}
+        after = {n: e.stats() for n, e in srv.engines.items()}
+        batches = sum(after[n]["batches"] - before[n]["batches"] for n in after)
+        want = {"decode_outputs_cuda": batches, "nms_suppress": batches,
+                "nms_suppress_tiled": 0, "decode_outputs_bin_cuda": 0,
+                "fused_pointwise_conv_cuda": 0}
+        if launches != want:
+            fail(f"serve: launches {launches} over {batches} batches, expected {want} "
+                 "(K3 in its TMA form and K1 once a batch)")
+        per_model = {}
+        for n, e in srv.engines.items():
+            a, b = after[n], before[n]
+            sent = a["requests"] - b["requests"]
+            if sent != traffic["sent"][n] or a["timeouts"] or a["batch_errors"] or \
+                    a["reload_errors"]:
+                fail(f"serve {n}: stats {a} against {traffic['sent'][n]} requests sent")
+            if a["by_priority"].get("urgent", 0) != traffic["urgent"][n]:
+                fail(f"serve {n}: {a['by_priority']} urgent, sent {traffic['urgent'][n]}")
+            n_b = a["batches"] - b["batches"]
+            times = list(e.batch_times)[batch_times[n]:]
+            per_model[n] = dict(
+                requests=sent, requests_per_s=sent / traffic["wall_s"], batches=n_b,
+                mean_batch_fill=sent / n_b, latency_ms=a["latency_ms"],
+                host_ms_per_batch=float(np.median([t[0] for t in times])),
+                call_ms_per_batch=float(np.median([t[1] for t in times])),
+                device_ms_per_batch=rec["direct"][n]["device_ms_per_batch"],
+                # the card's busy share if every batch took its direct device time
+                device_share_estimate=n_b * rec["direct"][n]["device_ms_per_batch"]
+                / (traffic["wall_s"] * 1e3))
+        if after["bf16"]["reloads"] < 1:
+            fail("serve: the bf16 reload was not counted")
+
+        fresh = Detector(plans["bf16"], device="cuda")            # reads bf16.pth
+        check_answers("bf16 after the reload", probe(port, "bf16", jpegs[:8]),
+                      direct_answers(fresh, rgbs[:8]))
+        check_answers("int8 after the traffic", probe(port, "int8", jpegs[:8]),
+                      direct_answers(dets["int8"], rgbs[:8]))
+        del fresh
+
+        # the watcher: the port trainer's checkpoint beside the int8 plan
+        model = YoloModel(spec)
+        model.load_state_dict(weights_b)
+        save_checkpoint(train_checkpoint_path(plans["int8"].save_path),
+                        {"model": model, "opt": torch.optim.SGD(model.parameters(), lr=0.01),
+                         "ema": ModelEMA(model), "step": 1})
+        deadline = time.monotonic() + 30
+        eng = srv.engines["int8"]
+        while eng.stats()["reloads"] == 0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        conv = dets["int8"].model.model[0]
+        if eng.stats()["reloads"] != 1 or eng.stats()["reload_errors"] or \
+                not torch.equal(conv.sw.cpu(), Q.quantize_weight(weights_b["model.0.conv.weight"])[1]):
+            fail(f"serve: the watcher did not load the .train.pt: {eng.stats()}")
+        rec["watcher"] = dict(reloads=eng.stats()["reloads"], source="int8.train.pt")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        for e in srv.engines.values():
+            e.close()
+    rec.update(serving=per_model, traffic=traffic, launches_serve=launches,
+               phase_s=time.perf_counter() - t_phase)
+    print(json.dumps({"serve": {k: rec[k] for k in ("serving", "traffic", "launches_serve",
+                                                      "watcher", "calibrate_s", "phase_s")}}),
+          flush=True)
+    del dets, srv
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port")
+    ap.add_argument("--only", choices=["serve"],
+                    help="build the kernels and run this phase alone (a debugging aid: "
+                         "it prints no result line)")
+    ap.add_argument("--serve-clients", nargs=2, metavar=("PORT", "JPEGS"),
+                    help=argparse.SUPPRESS)      # phase 8's client process
+    args = ap.parse_args()
+    if args.serve_clients:
+        serve_clients(int(args.serve_clients[0]), args.serve_clients[1])
+        return
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs the port on the GPU")
@@ -1740,6 +2266,10 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    if args.only == "serve":
+        phase_serve()
+        print("chip_smoke: --only serve passed (no result line)", flush=True)
+        return
 
     plan = random_weights_plan()
     spec = build_model_spec(cvt_cfg(plan.model_cfg), plan.image_chan, plan.anchors,
@@ -1756,6 +2286,7 @@ def main() -> None:
     phase_train_reference()
     launches_validate_map = phase_train_run()
     launches_model_zoo, k3_p6 = phase_model_zoo()
+    launches_serve = phase_serve()
 
     meta = {
         "decode_level": ("csrc/decode.cu", "yolo_continuous_tpu/kernels/decode_pallas.py:67",
@@ -1786,6 +2317,7 @@ def main() -> None:
                             replaces=replaces, launches=launches[counter],
                             launches_validate_map=launches_validate_map[counter],
                             launches_model_zoo=launches_model_zoo[counter],
+                            launches_serve=launches_serve[counter],
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], **other))

@@ -806,3 +806,96 @@ def test_zoo_rows_on_the_card(cuda, group):
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------- int8 PTQ and serving
+
+INT8_SHAPES = [  # (x shape, w shape, stride, padding, groups, route)
+    ((2, 3, 64, 64), (32, 3, 3, 3), 1, 1, 1, "gemm"),          # yolov7's stem, K 27 -> 32
+    ((2, 32, 64, 64), (64, 32, 3, 3), 2, 1, 1, "gemm"),         # 3x3 stride 2
+    ((2, 512, 20, 20), (256, 512, 1, 1), 1, 0, 1, "gemm"),      # 1x1: the activation multiplied
+    ((1, 20, 5, 3), (12, 20, 3, 3), 2, 1, 1, "gemm"),           # M under 17, K and N padded
+    ((2, 64, 16, 16), (64, 16, 3, 3), 1, 1, 4, "f64"),          # grouped
+    ((2, 32, 16, 16), (32, 1, 3, 3), 2, 1, 32, "f64"),          # depthwise
+]
+
+
+@pytest.mark.parametrize("xs,ws,s,p,g,route", INT8_SHAPES)
+def test_int8_routes_match_plain(cuda, xs, ws, s, p, g, route):
+    """Each int8 route on the card: int32 accumulators bit-equal to the plain
+    version's (an fp64 convolution on the CPU), outputs equal; the gemm
+    shapes also through the taps route."""
+    from yolo_continuous_tpu_torch.nn import quant as Q
+    gen = torch.Generator().manual_seed(sum(xs) + sum(ws))
+    x = (torch.randn(xs, generator=gen) * 2).to(torch.bfloat16)
+    w = torch.randn(ws, generator=gen)
+    amax = x.abs().amax().float() * 0.9
+    assert Q.route_for(xs, ws, s, p, g) == route
+    wq, sw = Q.quantize_weight(w)
+    wq_g, sw_g = Q.quantize_weight(w.to(cuda))
+    assert torch.equal(wq_g.cpu(), wq) and torch.equal(sw_g.cpu(), sw)
+    sx = Q.activation_scale(amax)
+    want = Q.accumulators_plain(x, sx, wq, s, p, g)
+    mat = Q.gemm_weight(wq_g) if g == 1 else None
+    routes = [route] + (["taps"] if route == "gemm" else [])
+    for r in routes:
+        got = Q.accumulators_cuda(x.to(cuda), sx.to(cuda), wq_g, mat, s, p, g, route=r)
+        assert torch.equal(got.cpu(), want), r
+        out = Q.dequantize(got, sx.to(cuda), sw_g, torch.bfloat16)
+        assert torch.equal(out.cpu(), Q.dequantize(want, sx, sw, torch.bfloat16)), r
+
+
+def test_int8_route_by_shape_and_the_shape_that_raises(cuda, monkeypatch):
+    from yolo_continuous_tpu_torch.nn import quant as Q
+    with pytest.raises(ValueError, match="overflow int32"):
+        Q.route_for((1, 16000, 4, 4), (8, 16000, 3, 3), 1, 1, 1)
+    x = torch.randn(2, 16, 24, 24, device=cuda)
+    wq, _ = Q.quantize_weight(torch.randn(24, 16, 3, 3, device=cuda))
+    with pytest.raises(ValueError, match="does not take"):
+        Q.accumulators_cuda(x, torch.tensor(1.0, device=cuda), wq, None, 1, 1, 1, route="f64")
+    monkeypatch.setattr(Q, "IM2COL_BYTES", 2 * 24 * 24 * 16 * 4)    # the im2col no longer fits
+    assert Q.route_for(x.shape, wq.shape, 1, 1, 1) == "taps"
+    sx = torch.tensor(0.03, device=cuda)
+    got = Q.accumulators_cuda(x, sx, wq, Q.gemm_weight(wq), 1, 1, 1)
+    assert torch.equal(got.cpu(), Q.accumulators_plain(x.cpu(), sx.cpu(), wq.cpu(), 1, 1, 1))
+
+
+def test_quantized_detector_card_matches_cpu(cuda):
+    """yolov7-tiny @64 int8 in fp32 on the card against the CPU, from the
+    same weights and scales: maps within 1e-4, detections' keep-set equal."""
+    plan = TrainPlan(tiny_plan_cfg("Detect", 64))
+    plan.model_cfg = "cfg/net/yolov7-tiny.yaml"
+    cpu = Detector(plan, device="cpu", dtype=torch.float32, quantize=True, seed=1)
+    spread_weights(cpu.model, 1)
+    sd = cpu.model.state_dict()
+    cpu = Detector(plan, device="cpu", dtype=torch.float32, quantize=True, state_dict=sd)
+    gpu = Detector(plan, device="cuda", dtype=torch.float32, quantize=True, state_dict=sd)
+    x = np.random.RandomState(1).rand(2, 64, 64, 3).astype(np.float32)
+    gpu.load_quant_state(cpu.calibrate(x))
+    for got, want in zip(gpu.forward(x), cpu.forward(x)):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+def test_batching_engine_round_trip_on_the_card(cuda):
+    """One BatchingEngine on a CUDA Detector: warm-up, a padded batch, K3
+    and K1 launched for it, JSON-ready rows mapped to the original pixels."""
+    from yolo_continuous_tpu_torch.serve import BatchingEngine
+    plan = TrainPlan(tiny_plan_cfg("Detect", 64))
+    det = Detector(plan, device="cuda", seed=0)
+    eng = BatchingEngine(det, batch_size=4, max_wait_ms=2.0, conf=0.0, nms=0.5)
+    try:
+        n3, n1 = decode.decode_outputs_cuda.launches, nms_k1k2.nms_suppress.launches
+        img = np.random.RandomState(0).randint(0, 255, (48, 80, 3)).astype(np.uint8)
+        res = eng.submit(img)
+        assert set(res) == {"boxes", "scores", "classes", "labels"} and res["boxes"]
+        assert decode.decode_outputs_cuda.launches - n3 == 1
+        assert nms_k1k2.nms_suppress.launches - n1 == 1
+        from yolo_continuous_tpu_torch.ops.preprocess import letterbox
+        from yolo_continuous_tpu_torch.serve import answers, detect_rows
+        x = np.zeros((4, 64, 64, 3), np.float32)        # padded as the engine pads
+        x[0] = letterbox(img, (64, 64), (114, 114, 114))[0].astype(np.float32) / 255.0
+        rows = detect_rows(det, torch.from_numpy(x).to(cuda), 0.0, 0.5, 100)
+        assert res == answers(rows, [img.shape[:2]], (64, 64), plan.labels)[0]
+        assert eng.stats()["batches"] == 1 and eng.stats()["mean_batch_fill"] == 1.0
+    finally:
+        eng.close()

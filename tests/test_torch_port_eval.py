@@ -114,8 +114,9 @@ def test_val_cli_runs_on_the_cpu(setup, tmp_path):
     path.write_text(yaml.safe_dump(cfg))
     out = val_cli.main([str(path), "--device", "cpu", "--max-images", "2"])
     assert set(out) == {"mAP@0.5", "mAP@0.5:0.95"} and all(0 <= v <= 1 for v in out.values())
-    with pytest.raises(NotImplementedError, match="item 18"):
-        val_cli.main([str(path), "--device", "cpu", "--quantize"])
+    out = val_cli.main([str(path), "--device", "cpu", "--max-images", "2", "--quantize",
+                        "--calib-images", "2"])        # int8: calibrate, then validate
+    assert set(out) == {"mAP@0.5", "mAP@0.5:0.95"} and all(0 <= v <= 1 for v in out.values())
     if not torch.cuda.is_available():       # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             val_cli.main([str(path)])

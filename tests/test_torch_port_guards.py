@@ -32,7 +32,8 @@ def test_every_port_module_is_scanned():
     assert "yolo_continuous_tpu_torch/train/train_loop.py" in FILES
     for rel in ("data/dataset.py", "ops/augment.py", "ops/enhance.py",
                 "eval/evaluator.py", "eval/validate.py", "train/__main__.py", "val.py",
-                "nn/fuse.py", "nn/yolo_body.py", "losses/bin_loss.py"):
+                "nn/fuse.py", "nn/yolo_body.py", "losses/bin_loss.py", "nn/quant.py",
+                "serve.py", "utils/timing.py"):
         assert f"yolo_continuous_tpu_torch/{rel}" in FILES
 
 
@@ -58,6 +59,8 @@ import yolo_continuous_tpu_torch.ops.preprocess
 import yolo_continuous_tpu_torch.eval.evaluator, yolo_continuous_tpu_torch.eval.validate
 import yolo_continuous_tpu_torch.nn.fuse, yolo_continuous_tpu_torch.nn.yolo_body
 import yolo_continuous_tpu_torch.losses.bin_loss
+import yolo_continuous_tpu_torch.nn.quant, yolo_continuous_tpu_torch.serve
+import yolo_continuous_tpu_torch.utils.timing
 import torch
 from yolo_continuous_tpu_torch.kernels import _build
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r} or m == "triton")

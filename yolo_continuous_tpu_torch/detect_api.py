@@ -8,8 +8,8 @@ IBin heads: kernel K4), class-aware NMS (kernels K1/K2 on CUDA), letterbox
 un-mapping. Everything up to the fixed-size NMS result stays on the device.
 
 Runs on ``cuda`` by default and raises if there is no CUDA device; pass
-``device="cpu"`` for the plain CPU path (the tests do). Not ported yet:
-``quantize`` and ``calibrate`` (ROADMAP.md Queue 1 item 18).
+``device="cpu"`` for the plain CPU path (the tests do). ``quantize=True``
+serves the Conv body in int8 (``nn/quant.py``) after ``calibrate``.
 
 Deliberate fix kept from the JAX package: prediction runs on RGB, as
 training does (the reference predicts on cv2's BGR, ``detect.py:23``).
@@ -79,19 +79,30 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def weights_candidates(save_path: str) -> Tuple[str, str, str]:
+    """The files a plan's weights are read from, in order: a ``.pth`` beside
+    ``save_path``, the port's train checkpoint, the JAX ``.msgpack`` at
+    ``save_path`` itself."""
+    return (os.path.splitext(save_path)[0] + ".pth", train_checkpoint_path(save_path), save_path)
+
+
+def weights_source(save_path: str) -> Optional[str]:
+    """The file that ``saved_weights(save_path, ...)`` reads, or None."""
+    return next((p for p in weights_candidates(save_path) if os.path.exists(p)), None)
+
+
 def saved_weights(save_path: str, spec, use_ema: bool = True):
-    """The state dict saved for a plan, or None: a ``.pth`` beside
-    ``save_path``, then the port's train checkpoint, then the JAX package's
-    ``.msgpack`` at ``save_path`` (EMA weights unless ``not use_ema``)."""
-    pth = os.path.splitext(save_path)[0] + ".pth"
-    if os.path.exists(pth):
+    """The state dict saved for a plan, or None: the first file of
+    ``weights_candidates`` that exists (EMA weights unless ``not use_ema``)."""
+    path = weights_source(save_path)
+    pth, train_ckpt, _ = weights_candidates(save_path)
+    if path is None:
+        return None
+    if path == pth:
         return torch.load(pth, map_location="cpu", weights_only=True)
-    train_ckpt = train_checkpoint_path(save_path)
-    if os.path.exists(train_ckpt):
+    if path == train_ckpt:
         return serving_state_dict(load_checkpoint(train_ckpt), use_ema)
-    if os.path.exists(save_path):
-        return state_dict_from_jax(spec, *jax_weights(read_jax_msgpack(save_path), use_ema))
-    return None
+    return state_dict_from_jax(spec, *jax_weights(read_jax_msgpack(path), use_ema))
 
 
 class Detector:
@@ -117,7 +128,18 @@ class Detector:
     model of ``deploy_spec``. ``head_dtype`` (default fp32) is the dtype of
     the head's logits (``layers.LogitConv``); the decode casts the maps to
     fp32 before its kernel, as JAX does. ``reload_weights`` swaps in a
-    checkpoint's weights for the next call.
+    checkpoint's weights for the next call; ``read_weights`` and
+    ``swap_weights`` are its two halves, so that a server holds its lock
+    only for the swap.
+
+    ``quantize=True`` (default: the plan's ``quantize`` key, as
+    ``detect_api.py:103-105``) serves every body ``Conv`` in symmetric int8
+    (``layers.Conv``, ``nn/quant.py``): per-channel weight scales from the
+    fp32 weights, derived when the weights load (and again on every swap),
+    and per-tensor activation scales that ``calibrate`` records (or
+    ``load_quant_state`` sets, e.g. from JAX's ``"quant"`` collection through
+    ``tools/jax_weights.quant_state_from_jax``). A call before either raises
+    ``RuntimeError``. The scales survive ``reload_weights``.
 
     On CUDA, TF32 is switched off for cuDNN convolutions and cuBLAS
     matmuls: the fp32 head convolution then keeps fp32 products, as the
@@ -128,7 +150,7 @@ class Detector:
     def __init__(self, plan: TrainPlan, device="cuda", dtype: Optional[torch.dtype] = None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None, seed: int = 0,
                  fused_tails: Optional[bool] = None, use_ema: bool = True, fuse: bool = False,
-                 head_dtype: Optional[torch.dtype] = None):
+                 head_dtype: Optional[torch.dtype] = None, quantize: Optional[bool] = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
@@ -145,15 +167,22 @@ class Detector:
         if fused_tails is None:
             fused_tails = bool(plan.cfg.get("fused_tails", False))
         self.fused_tails = bool(fused_tails)
+        if quantize is None:
+            quantize = bool(plan.cfg.get("quantize", False))
+        self.quantize = bool(quantize)
+        self.calibrated = False
         if state_dict is None:
             state_dict = saved_weights(plan.save_path, self.train_spec, use_ema)
         if state_dict is None:
             state_dict = YoloModel(self.train_spec).init_weights(
                 torch.Generator().manual_seed(seed)).state_dict()
-        model = YoloModel(self.spec, fused_tails=self.fused_tails)
+        model = YoloModel(self.spec, fused_tails=self.fused_tails,
+                          quant_mode="int8" if self.quantize else None)
         model.load_state_dict(self._served(state_dict), strict=True)
-        self.model = model.to(self.device).eval().set_dtype(self.dtype,
-                                                              head_dtype=self.head_dtype)
+        model = model.to(self.device).eval()
+        if self.quantize:
+            model.set_int8_weights()            # from the fp32 weights, before the cast
+        self.model = model.set_dtype(self.dtype, head_dtype=self.head_dtype)
 
     def _served(self, state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """A train-form state dict -> the served model's: checked against the
@@ -165,25 +194,67 @@ class Detector:
         template.load_state_dict(state_dict, strict=True)
         return fuse_model_params(self.train_spec, template.state_dict())
 
+    def read_weights(self, path: Optional[str] = None,
+                     use_ema: bool = True) -> Optional[Dict[str, torch.Tensor]]:
+        """The served (fp32, CPU; re-parameterized under ``fuse``) state dict of
+        the weights saved at ``path`` (default: the plan's ``save_path``),
+        read through the constructor's order of sources (``saved_weights``),
+        or None when no checkpoint is there. Touches nothing served."""
+        state_dict = saved_weights(path or self.plan.save_path, self.train_spec, use_ema)
+        return None if state_dict is None else self._served(state_dict)
+
+    def swap_weights(self, served: Dict[str, torch.Tensor]) -> None:
+        """Load ``read_weights``'s state dict in place (and, with
+        ``quantize``, derive the int8 weights from its fp32 values); the
+        activation scales stay."""
+        self.model.load_state_dict(served, strict=True)
+        if self.quantize:
+            self.model.set_int8_weights(served)
+
     def reload_weights(self, path: Optional[str] = None, use_ema: bool = True) -> bool:
         """Swap in the weights saved at ``path`` (default: the plan's
-        ``save_path``), read through the constructor's order of sources
-        (``saved_weights``), in place: the next call serves them. Returns
-        False, and keeps the weights, when no checkpoint is there
+        ``save_path``), in place: the next call serves them. Returns False,
+        and keeps the weights, when no checkpoint is there
         (``detect_api.py:145-197``)."""
-        state_dict = saved_weights(path or self.plan.save_path, self.train_spec, use_ema)
-        if state_dict is None:
+        served = self.read_weights(path, use_ema)
+        if served is None:
             return False
-        self.model.load_state_dict(self._served(state_dict), strict=True)
+        self.swap_weights(served)
         return True
+
+    def _input(self, images) -> torch.Tensor:
+        """images (bs, H, W, 3) float 0..1 -> (bs, 3, H, W) in the body dtype."""
+        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        return x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.contiguous_format)
+
+    def calibrate(self, images, batches: int = 1) -> Dict[str, torch.Tensor]:
+        """Record the int8 activation scales (``detect_api.py:199-218``):
+        ``images`` is one (bs, H, W, 3) float 0..1 batch or an iterable of
+        them; every Conv's amax becomes the running max of its input's
+        max-abs over them, on top of the amax already held. Returns the
+        scales (``YoloModel.quant_state``). ``batches`` is JAX's argument,
+        unused there too: every batch given is used."""
+        if not self.quantize:
+            raise RuntimeError("calibrate() requires Detector(quantize=True)")
+        for batch in [images] if hasattr(images, "shape") else list(images):
+            self.model.calibrate(self._input(batch))
+        self.calibrated = True
+        return self.model.quant_state()
+
+    def load_quant_state(self, state: Dict[str, torch.Tensor]) -> None:
+        """Set the activation scales from ``quant_state`` keys (JAX's through
+        ``tools/jax_weights.quant_state_from_jax``), in place of calibrating."""
+        self.model.load_quant_state(state)
+        self.calibrated = True
 
     @torch.inference_mode()
     def forward(self, images) -> List[torch.Tensor]:
         """images (bs, H, W, 3) float 0..1 -> raw maps [(bs, h, w, na, no)] in
         ``head_dtype`` (IAuxDetect: the leads only, iaux_detect.py:52)."""
-        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
-        x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.contiguous_format)
-        return self.model(x)[: self.nl]
+        if self.quantize and not self.calibrated:
+            raise RuntimeError("Detector(quantize=True) needs calibrate(images) before "
+                               "inference: the int8 path reads the recorded activation scales")
+        return self.model(self._input(images))[: self.nl]
 
     @torch.inference_mode()
     def __call__(self, images, conf_thres: float = 0.5, nms_thres: float = 0.4,

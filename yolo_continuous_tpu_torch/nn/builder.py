@@ -24,7 +24,7 @@ import copy
 import math
 import re
 from dataclasses import dataclass
-from typing import Any, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -441,12 +441,22 @@ class YoloModel(nn.Module):
     ``Conv`` rows only, as JAX ``builder.py:378-381`` (never to the Convs
     inside SPPCSPC): eligible ones run as K5 in eval mode
     (``layers.Conv``).
+
+    ``quant_mode`` (None, "calib" or "int8"; JAX ``builder.py:339-348``)
+    applies in eval mode only: every ``layers.Conv`` of the net, nested ones
+    too, records its input's max-abs ("calib") or runs int8 ("int8", after
+    ``set_int8_weights``). In train mode the model computes what it computes
+    without a mode. ``quant_state`` / ``load_quant_state`` read and write
+    the recorded amax values, keyed ``<module name>.amax``.
     """
 
-    def __init__(self, spec: ModelSpec, fused_tails: bool = False):
+    def __init__(self, spec: ModelSpec, fused_tails: bool = False, quant_mode=None):
         super().__init__()
+        if quant_mode not in (None, "calib", "int8"):
+            raise ValueError(f"quant_mode must be None, 'calib' or 'int8', got {quant_mode!r}")
         self.spec = spec
         self.dtype = torch.float32
+        self.quant_mode = quant_mode
         self.model = nn.ModuleList([_make_layer(s, spec, fused_tails) for s in spec.layers])
 
     def set_dtype(self, dtype: torch.dtype, cast_weights: bool = True,
@@ -467,7 +477,51 @@ class YoloModel(nn.Module):
         attention kernels normal(0, 0.02), biases 0."""
         return init_weights(self, generator)
 
+    def quant_convs(self):
+        """(name, Conv) of every quantized Conv, in module order."""
+        return [(n, m) for n, m in self.named_modules() if isinstance(m, L.Conv)]
+
+    def quant_state(self) -> Dict[str, torch.Tensor]:
+        """The recorded activation max-abs of every Conv, ``<name>.amax``."""
+        return {f"{n}.amax": m.amax.detach().clone() for n, m in self.quant_convs()}
+
+    def load_quant_state(self, state: Dict[str, torch.Tensor]) -> "YoloModel":
+        """Set every Conv's amax from ``quant_state``'s keys (all of them)."""
+        convs = dict(self.quant_convs())
+        want = {f"{n}.amax" for n in convs}
+        if set(state) != want:
+            raise KeyError(f"quant state keys differ: missing {sorted(want - set(state))[:5]}, "
+                           f"unexpected {sorted(set(state) - want)[:5]}")
+        for key, value in state.items():
+            m = convs[key[: -len(".amax")]]
+            m.amax = torch.as_tensor(value, dtype=torch.float32).to(m.amax.device).reshape(())
+        return self
+
+    def set_int8_weights(self, state_dict: Optional[Dict[str, torch.Tensor]] = None
+                         ) -> "YoloModel":
+        """Derive every Conv's ``wq`` and ``sw`` from fp32 weights: those of
+        ``state_dict`` (the served weights before a bf16 cast), else the
+        model's own, which must still be fp32."""
+        for n, m in self.quant_convs():
+            m.set_int8_weights(m.conv.weight if state_dict is None
+                               else state_dict[f"{n}.conv.weight"])
+        return self
+
+    @torch.no_grad()
+    def calibrate(self, x: torch.Tensor) -> "YoloModel":
+        """One calibration pass in eval mode: every Conv raises its amax to
+        the max-abs of its input (a running max over calls)."""
+        if self.training:
+            raise RuntimeError("calibrate runs in eval mode")
+        with L.quant_ctx("calib"):
+            self._walk(x)
+        return self
+
     def forward(self, x: torch.Tensor):
+        with L.quant_ctx(None if self.training else self.quant_mode):
+            return self._walk(x)
+
+    def _walk(self, x: torch.Tensor):
         saved = {}
         out = x.to(self.dtype)
         for s, m in zip(self.spec.layers, self.model):

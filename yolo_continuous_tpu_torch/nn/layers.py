@@ -44,7 +44,9 @@ For serving, ``YoloModel.set_dtype`` casts the weights themselves once.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -52,6 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.fused_conv import fused_pointwise_conv
+from . import quant as Q
 
 # True -> SiLU (the reference default), a str name, or ("leaky_relu", slope)
 # parsed from YAML strings like "nn.LeakyReLU(0.1)".
@@ -67,6 +70,33 @@ def autopad(k: int, p: Optional[int] = None) -> int:
     if p is None:
         p = k // 2 if isinstance(k, int) else [x // 2 for x in k]
     return p
+
+
+# int8 post-training quantization mode (JAX ``layers.py:85-112``): None, or
+# "calib" (every Conv records the running max of |x| over its input, then runs
+# the float path) or "int8" (every Conv runs ``nn/quant.py``'s integer path).
+# Per thread, so that engines serving a float and an int8 model side by side
+# never see each other's mode.
+_QUANT = threading.local()
+
+
+@contextlib.contextmanager
+def quant_ctx(mode):
+    """Conv blocks called in this scope (and this thread) run the int8 path
+    ("int8") or record activation scales ("calib"); train mode ignores it."""
+    if mode not in (None, "calib", "int8"):
+        raise ValueError(f"quant mode must be None, 'calib' or 'int8', got {mode!r}")
+    prev = getattr(_QUANT, "mode", None)
+    _QUANT.mode = mode
+    try:
+        yield
+    finally:
+        _QUANT.mode = prev
+
+
+def quant_mode():
+    """The quant mode of the current thread's scope."""
+    return getattr(_QUANT, "mode", None)
 
 
 def apply_act(x: torch.Tensor, act: ActSpec) -> torch.Tensor:
@@ -183,7 +213,19 @@ class LogitConv(nn.Conv2d):
 
 
 class Conv(nn.Module):
-    """Conv2d + BN + act; nets/common.py:97-109 (no int8 branch).
+    """Conv2d + BN + act; nets/common.py:97-109.
+
+    In eval mode under ``quant_ctx`` (JAX ``layers.py:470-500``), before any
+    other branch: "calib" records the running max of ``|x|`` over the input,
+    in the body dtype, into the buffer ``amax`` and runs the unfused float
+    path (JAX calibrates on a model built without fused tails,
+    ``detect_api.py:206-207``);
+    "int8" quantizes the input with ``amax`` and multiplies it by ``wq``
+    with int32 sums (``nn/quant.py``), scales back by ``sx * sw`` into the
+    input's dtype, then BN and the activation. ``wq`` and ``sw`` come from
+    the fp32 weights through ``set_int8_weights``; ``amax``, ``wq``, ``sw``
+    and ``wq_mat`` are non-persistent buffers, so no state dict holds them
+    (``YoloModel.quant_state`` reads the amax values).
 
     ``fused_tail=True`` (serving option, JAX ``layers.py:501-511``): in
     eval mode a 1x1, stride-1, ungrouped SiLU instance with C_in >=
@@ -201,8 +243,35 @@ class Conv(nn.Module):
         self.bn = BatchNorm2d(c2)
         self.act = act
         self.fused_tail = fused_tail and k == 1 and s == 1 and g == 1 and act is True
+        self.register_buffer("amax", torch.zeros(()), persistent=False)
+        for name in ("wq", "sw", "wq_mat"):
+            self.register_buffer(name, None, persistent=False)
+
+    @torch.no_grad()
+    def set_int8_weights(self, w: torch.Tensor) -> None:
+        """Derive ``wq``, ``sw`` (and the gemm route's ``wq_mat``) from the
+        fp32 conv weight ``w``, on this module's device."""
+        self.wq, self.sw = Q.quantize_weight(w.to(self.amax.device, torch.float32))
+        self.wq_mat = Q.gemm_weight(self.wq) if self.conv.groups == 1 else None
+
+    def int8_accumulators(self, x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+        """The int32 sums (B, Ho, Wo, N) of the int8 branch, ``sx`` being
+        ``quant.activation_scale(self.amax)``."""
+        if self.wq is None:
+            raise RuntimeError("int8 Conv without int8 weights: YoloModel.set_int8_weights "
+                               "derives them from the fp32 weights")
+        return Q.int8_accumulators(x, sx, self.wq, self.wq_mat, self.conv.stride[0],
+                                   self.conv.padding[0], self.conv.groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mode = quant_mode()
+        if mode is not None and not self.training:
+            if mode == "int8":
+                sx = Q.activation_scale(self.amax)
+                y = Q.dequantize(self.int8_accumulators(x, sx), sx, self.sw, x.dtype)
+                return apply_act(self.bn(y), self.act)
+            self.amax = torch.maximum(self.amax, x.detach().abs().amax().float())
+            return apply_act(self.bn(self.conv(x)), self.act)
         if self.fused_tail and not self.training and x.shape[1] >= FUSED_TAIL_MIN_CIN:
             bn = self.bn
             inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)

@@ -17,7 +17,8 @@ kernels ``(c, heads, hd)`` and biases ``(heads, hd)``, ``out`` kernel
 ``(heads, hd, c)``) becomes torch's ``ma.in_proj_weight`` ``(3c, c)``,
 ``ma.in_proj_bias`` and ``ma.out_proj``; and the layers ``tr{i}`` become the
 reference's ``tr.{i}``. ``body_state_dict_from_jax`` does the same for the
-``nn/yolo_body.py`` family (YoloBody, Backbone, LayoutBody).
+``nn/yolo_body.py`` family (YoloBody, Backbone, LayoutBody), and
+``quant_state_from_jax`` for the int8 activation scales.
 """
 from __future__ import annotations
 
@@ -163,6 +164,15 @@ def _state_dict(trees, key_of) -> Dict[str, torch.Tensor]:
 def state_dict_from_jax(spec: ModelSpec, params, batch_stats) -> Dict[str, torch.Tensor]:
     """(params, batch_stats) nested dicts of arrays -> the port's state_dict."""
     return _state_dict((params, batch_stats), lambda path, leaf: _torch_key(path, leaf, spec))
+
+
+def quant_state_from_jax(spec: ModelSpec, quant) -> Dict[str, torch.Tensor]:
+    """JAX's ``"quant"`` collection (the ``amax`` of every Conv, as nested
+    dicts) -> ``YoloModel.load_quant_state``'s dict, under the port's module
+    names (``l0_Conv/amax`` -> ``model.0.amax``), so that a model calibrated
+    in JAX serves from the port with the same scales."""
+    return {key: value.reshape(()).float() for key, value in
+            _state_dict((quant,), lambda path, leaf: _torch_key(path, leaf, spec)).items()}
 
 
 def _body_key(path_tokens, leaf) -> str:
