@@ -127,6 +127,33 @@ failure exits non-zero before the result line.
    latency percentiles from ``/stats``, host and call ms a batch, launches).
    ``python3 chip_smoke.py --only serve`` builds and runs this phase alone
    (no result line).
+9. parallel_and_tools, on ``cfg/coco_train.yaml`` (yolov7 @640, batch 16,
+   bf16 body, seeded weights). (perspective) ``Trainer.run`` for one epoch
+   on phase 6's plan keys and a copy of its JPEG dataset with
+   ``use_perspective: True`` (degrees 10, translate 0.1, scale 0.1, shear 10,
+   from the enhance YAML) and ``val_map_every: 1``: fails unless the loss is
+   finite, every valid box of every augmented batch lies inside the canvas,
+   and the ``validate_map`` call launched K3 in its TMA form (once, beside
+   one K1), counters at 0 around it; it prints the epoch's step and augment
+   ms (CUDA events) beside phase 6's, and one pool batch's augmentation timed
+   alone with and without the perspective. ``EnhancePackage`` with the
+   perspective on 16 images of 640 x 480 on the card and on the CPU from the
+   same draws: images within 1e-2 on 0..255, boxes and masks bit-equal.
+   (remat) 1 + 5 ``Trainer.train_step`` under no remat, ``bn_remat`` and
+   ``remat`` full, conv and dots: step ms, peak memory, launches a step;
+   the first step's loss parts and running statistics must equal the plain
+   step's within rtol 1e-6 (and say whether bit-equal). (mesh)
+   ``parallel/distributed.initialize`` as a world of one through NCCL on a
+   free port, ``make_mesh(1, 1)``, ``shard_params``, ``shard_batch`` and a
+   ``train_step`` bit-equal to the unmeshed step (loss parts and every state
+   tensor), its step ms between two plain runs; the group is destroyed.
+   Multi-rank meshes are the CPU tests' (``tests/test_torch_port_distributed.py``).
+   (tools) ``gen_anchors`` on the phase's boxes (written as VOC XMLs), and
+   ``torch_export`` of the phase's ``.train.pt`` to the ``.pth`` that a
+   ``Detector`` then reads: its detections on 16 images equal those of a
+   ``Detector`` on the ``.train.pt`` bit for bit. Prints a
+   ``parallel_and_tools`` JSON line; ``--only parallel_and_tools`` runs
+   this phase alone (no result line).
 
 Kernel times are device times: ``cuda_ms`` holds the stream with a sleep
 kernel while the host enqueues the timed calls, so that a kernel shorter
@@ -136,7 +163,8 @@ Before the last line it prints the ``kernels`` JSON line (time, bound,
 error of each kernel; ``launches`` on phase 4's main paths,
 ``launches_validate_map`` on phase 6's ``validate_map`` calls,
 ``launches_model_zoo`` on phase 7's counted requests and ``launches_serve``
-on phase 8's serving window; K3's 4-level time and
+on phase 8's serving window, ``launches_parallel`` on phase 9's counted
+calls; K3's 4-level time and
 bound at the P6 shape) and the card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 import copy
@@ -1133,11 +1161,12 @@ def plan_copy(root: str, name: str, **keys) -> str:
     return path
 
 
-def augment_alone(trainer, train_ann: str) -> dict:
+def augment_alone(trainer, train_ann: str, cfgs=None) -> dict:
     """One batch's augmentation from the device pool, as epoch 1 of the
     run draws it (the draws and indices already on the card), timed alone:
     the profiler's summed kernel time and launches, CUDA events with the
-    stream held while the host enqueues, and the host's enqueue time."""
+    stream held while the host enqueues, and the host's enqueue time. With
+    ``cfgs`` (name -> AugConfig), a record a config from one staged pool."""
     from yolo_continuous_tpu_torch.data.dataset import YoloDataset, load_annotation_file
     from yolo_continuous_tpu_torch.ops.augment import augment_batch_from_pool, to_device
     plan = trainer.plan
@@ -1147,17 +1176,26 @@ def augment_alone(trainer, train_ann: str) -> dict:
     pool = [to_device(a, "cuda") for a in ds.staged_pool()]
     ds.reseed(0)
     tile_idx, mosaic, mixup = next(ds.epoch_plans(BS, plan.shuffle, plan.drop_last))
-    draw = trainer.draw(0, tile_idx.shape[1], mosaic, mixup).to("cuda")
     idx = to_device(tile_idx, "cuda")
+    own, out = trainer.aug_cfg, {}
+    for name, cfg in (cfgs or {None: own}).items():
+        trainer.aug_cfg = cfg
+        draw = trainer.draw(0, tile_idx.shape[1], mosaic, mixup).to("cuda")
 
-    def call():
-        return augment_batch_from_pool(draw, *pool, idx, cfg=trainer.aug_cfg,
-                                       max_gt=plan.max_boxes)
+        def call():
+            return augment_batch_from_pool(draw, *pool, idx, cfg=cfg, max_gt=plan.max_boxes)
 
-    prof = profile_window(call)
-    return dict(mosaic=int(mosaic.sum()), mixup=int(mixup.sum()), device_ms=prof["device_ms"],
-                held_ms=cuda_ms(call, 10), host_ms=host_us(call, 10) / 1e3,
-                launches_per_call=prof.get("launches_per_call"), profile_top=prof.get("top"))
+        prof = profile_window(call)
+        out[name] = dict(mosaic=int(mosaic.sum()), mixup=int(mixup.sum()),
+                         device_ms=prof["device_ms"], held_ms=cuda_ms(call, 10),
+                         host_ms=host_us(call, 10) / 1e3,
+                         launches_per_call=prof.get("launches_per_call"),
+                         profile_top=prof.get("top"))
+    trainer.aug_cfg = own
+    return out if cfgs else out[None]
+
+
+TRAIN_RUN_EPOCHS = []     # phase 6's epoch records, printed beside phase 9's
 
 
 def phase_train_run() -> dict:
@@ -1248,6 +1286,7 @@ def phase_train_run() -> dict:
                 for st in epochs],
         validate_map=records, resumed_at_step=8, augment_alone=augment,
         phase_s=time.perf_counter() - t_phase)}), flush=True)
+    TRAIN_RUN_EPOCHS[:] = epochs
     del first, second, state
     torch.cuda.empty_cache()
     return total
@@ -2235,10 +2274,366 @@ def phase_serve():
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+
+PERSP_IMG_TOL = 1e-2      # EnhancePackage card vs CPU on 0..255 (tests/test_torch_port_enhance.py)
+REMAT_RTOL = 1e-6         # first step's loss parts and running statistics, remat vs none
+REMAT_CASES = [("none", False, None), ("bn_remat", True, None), ("full", False, "full"),
+               ("conv", False, "conv"), ("dots", False, "dots")]
+
+
+def write_voc(root: str, ann_file: str) -> str:
+    """VOC XMLs (``tools/gen_anchors.load_voc_boxes`` reads them) of an
+    annotation file's boxes, under ``root/Annotations``; returns the dir."""
+    import cv2
+    out = os.path.join(root, "Annotations")
+    os.makedirs(out, exist_ok=True)
+    with open(ann_file) as f:
+        lines = f.read().split("\n")
+    for i, line in enumerate(l for l in lines if l.strip()):
+        path, *boxes = line.split()
+        h, w = cv2.imread(path).shape[:2]
+        objs = "".join(
+            "<object><name>c{4}</name><difficult>0</difficult><bndbox><xmin>{0}</xmin>"
+            "<ymin>{1}</ymin><xmax>{2}</xmax><ymax>{3}</ymax></bndbox></object>".format(
+                *b.split(",")) for b in boxes)
+        with open(os.path.join(out, f"im{i:03d}.xml"), "w") as f:
+            f.write(f"<annotation><size><width>{w}</width><height>{h}</height></size>"
+                    f"{objs}</annotation>")
+    return out
+
+
+def perspective_run(root: str, total: dict) -> dict:
+    """``Trainer.run`` of yolov7 @640 with ``use_perspective`` for one epoch
+    from phase 6's plan keys and dataset, ``validate_map`` counted; then one
+    pool batch's augmentation with and without the perspective."""
+    import torch
+    from yolo_continuous_tpu_torch.config.plan import TrainPlan
+    from yolo_continuous_tpu_torch.train.train_loop import Trainer
+    rs = np.random.RandomState(0)
+    train_ann = write_jpeg_dataset(root, 64, rs, "train")
+    val_ann = write_jpeg_dataset(root, 16, rs, "val")
+    plan_path = plan_copy(root, "plan_persp.yaml", train=train_ann, val=val_ann, batch_size=BS,
+                          image_size=SIZE, mosaic_prob=0.5, mixup_prob=0.5, val_map_every=1,
+                          save_dir=root + "/", save_name="persp", seed=0, epochs=1,
+                          resume="False", device_cache="True", use_perspective="True")
+    trainer = Trainer(TrainPlan(plan_path), device="cuda")
+    cfg = trainer.aug_cfg
+    if not (cfg.use_perspective and (cfg.degrees, cfg.translate, cfg.pscale, cfg.shear)
+            == (10, 0.1, 0.1, 10)):
+        fail(f"perspective: the plan's AugConfig is {cfg}")
+    step, validate_map = trainer.train_step, trainer.validate_map
+    boxes_out = []
+
+    def train_step(state, images, labels, lmask, *hyper):
+        # every valid box inside the canvas: normalized xyxy within [0, 1]
+        c, wh = labels[..., 1:3], labels[..., 3:5]
+        xyxy = torch.where(lmask[..., None], torch.cat([c - wh / 2, c + wh / 2], -1), 0.5)
+        boxes_out.append(torch.stack([xyxy.amin(), xyxy.amax(), lmask.sum().float()]))
+        return step(state, images, labels, lmask, *hyper)
+
+    records = []
+
+    def counted(state, **kw):
+        torch.cuda.synchronize()
+        for fn in counters():
+            fn.launches = 0
+        summary = validate_map(state, **kw)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters()}
+        k3, k1 = launches["decode_outputs_cuda"], launches["nms_suppress"]
+        if not (k3 >= 1 and k3 == k1):
+            fail(f"perspective: validate_map launched K3 {k3} and K1 {k1} times; the TMA form "
+                 "launches K3 once a request, beside one K1")
+        for name, n in launches.items():
+            total[name] += n
+        records.append(dict(launches=launches, **summary))
+        return summary
+
+    trainer.train_step, trainer.validate_map = train_step, counted
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run(log=lambda line: print(line, flush=True))
+    st = trainer.epoch_stats[0]
+    if not np.isfinite(st["loss"]) or len(records) != 1:
+        fail(f"perspective: epoch loss {st['loss']}, {len(records)} validate_map calls")
+    lo, hi, n = torch.stack(boxes_out).cpu().numpy().T
+    if not (np.min(lo) >= -1e-6 and np.max(hi) <= 1 + 1e-6 and np.sum(n) > 0):
+        fail(f"perspective: a valid box outside the canvas: min {np.min(lo)}, max {np.max(hi)}")
+    alone = augment_alone(trainer, train_ann, {"with": cfg,
+                                               "without": cfg._replace(use_perspective=False)})
+    rec = dict(epoch={k: st[k] for k in ("loss", "step_ms", "augment_ms", "train_step_ms",
+                                         "img_s", "max_memory_allocated")},
+               phase6_epochs=[{k: e.get(k) for k in ("epoch", "step_ms", "augment_ms",
+                                                     "train_step_ms")} for e in TRAIN_RUN_EPOCHS]
+               or "phase 6 not run", boxes_in_canvas=dict(min=float(np.min(lo)),
+                                                          max=float(np.max(hi)),
+                                                          valid=int(np.sum(n))),
+               validate_map=records, augment_alone=alone,
+               augment_added_ms=alone["with"]["held_ms"] - alone["without"]["held_ms"])
+    return trainer, rec
+
+
+def enhance_package_card_vs_cpu() -> dict:
+    """``EnhancePackage`` with the perspective on 16 images of 640 x 480, on
+    the card and on the CPU from the same draws."""
+    import torch
+    from yolo_continuous_tpu_torch.ops.enhance import EnhancePackage
+    rs = np.random.RandomState(5)
+    img = rs.randint(0, 256, (BS, 480, 640, 3)).astype(np.float32)
+    boxes = np.zeros((BS, 8, 5), np.float32)
+    for i in range(8):
+        x, y = rs.uniform(0, 500, BS), rs.uniform(0, 360, BS)
+        boxes[:, i] = np.stack([x, y, x + rs.uniform(20, 140, BS), y + rs.uniform(20, 120, BS),
+                                np.full(BS, i)], -1)
+    mask = np.ones((BS, 8), bool)
+    from yolo_continuous_tpu_torch.config.plan import cvt_cfg
+    cfg = dict(cvt_cfg("cfg/enhance/enhance.yaml"), equalize=0.5, scale_fill=0.5)
+    pkg = EnhancePackage(SIZE, cfg, use_perspective=True)
+    draw = pkg.draw(torch.Generator().manual_seed(6), BS, 480, 640)
+    cpu = pkg(draw, *map(torch.from_numpy, (img, boxes, mask)))
+    args = [torch.from_numpy(a).cuda() for a in (img, boxes, mask)]
+    card = pkg(draw.to("cuda"), *args)
+    img_err = float((card[0].cpu() - cpu[0]).abs().max())
+    if img_err > PERSP_IMG_TOL or not torch.equal(card[2].cpu(), cpu[2]):
+        fail(f"EnhancePackage card vs CPU: images {img_err} (tol {PERSP_IMG_TOL}) or masks differ")
+    box_err = float((card[1].cpu() - cpu[1]).abs().max())
+    if box_err > 0:
+        fail(f"EnhancePackage card vs CPU: boxes differ by {box_err}")
+    ms = cuda_ms(lambda: pkg(draw.to("cuda"), *args), iters=5, hold=False)
+    return dict(images=BS, size="640x480 -> 640", max_abs_err=img_err, tol=PERSP_IMG_TOL,
+                boxes="bit-equal", kept=int(cpu[2].sum()), ms=ms)
+
+
+def bn_buffers(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items() if "running_" in k}
+
+
+def launches_of(fn) -> int:
+    """Device kernels and copies that one call of ``fn`` launches, from a
+    profiler window that records device activity only (no CPU ops: a
+    fraction of ``profile_window``'s cost on a 10,000-launch train step)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def remat_steps(inputs) -> dict:
+    """``Trainer.train_step`` of yolov7 @640, batch 16, 1 + 5 steps under no
+    remat, ``bn_remat`` and each ``remat`` policy: step ms, peak memory,
+    launches a step; the first step's loss parts and running statistics
+    against the plain step's."""
+    import torch
+    from yolo_continuous_tpu_torch.config.plan import TrainPlan
+    from yolo_continuous_tpu_torch.train.train_loop import Trainer
+    out, base, weights0 = {}, None, None
+    for name, bn_remat, remat in REMAT_CASES:
+        t_case = time.perf_counter()
+        plan = TrainPlan("cfg/coco_train.yaml")
+        plan.image_size, plan.batch_size, plan.max_boxes = SIZE, BS, 64
+        plan.cfg = dict(plan.cfg, bn_remat=bn_remat)
+        trainer = Trainer(plan, device="cuda", remat=remat)
+        state = trainer.init_state(seed=0, state_dict=weights0)
+        weights0 = weights0 or {k: v.detach().cpu().clone()
+                                for k, v in trainer.model.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first = {k: v.clone() for k, v in trainer.train_step(state, *inputs, 0.01, 0.1,
+                                                             0.937)[1].items()}
+        running, weights = bn_buffers(trainer.model), flat_state(state)
+        peak = torch.cuda.max_memory_allocated()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            trainer.train_step(state, *inputs, 0.01, 0.1, 0.937)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = launches_of(lambda: trainer.train_step(state, *inputs, 0.01, 0.1, 0.937))
+        rec = dict(step_ms_median=float(np.median(times)), step_ms=times,
+                   peak_memory_gb=peak / 2 ** 30, launches_per_step=launches,
+                   first={k: float(v) for k, v in first.items()})
+        if base is None:
+            base = dict(first=first, running=running, weights=weights)
+        else:
+            parts = max(float(((first[k].double() - base["first"][k].double()).abs()
+                               / base["first"][k].double().abs().clamp(min=1e-30)).max())
+                        for k in first)
+            stats = max(float(((running[k].double() - v.double()).abs()
+                               / v.double().abs().clamp(min=1e-12)).max())
+                        for k, v in base["running"].items())
+            if parts > REMAT_RTOL or stats > REMAT_RTOL:
+                fail(f"remat {name}: first step's loss parts ({parts}) or running statistics "
+                     f"({stats}) differ from no remat beyond rtol {REMAT_RTOL}")
+            rec.update(loss_parts_rel_err=parts, running_stats_rel_err=stats, rtol=REMAT_RTOL,
+                       loss_and_stats_bit_equal=all(torch.equal(first[k], base["first"][k])
+                                                    for k in first)
+                       and all(torch.equal(running[k], v) for k, v in base["running"].items()),
+                       weights_rel_l2=rel_l2({k: weights[k] for k in base["weights"]
+                                              if base["weights"][k].is_floating_point()},
+                                             {k: v.cpu() for k, v in base["weights"].items()
+                                              if v.is_floating_point()}))
+        rec["seconds"] = time.perf_counter() - t_case
+        out[name] = rec
+        print(f"remat {name}: {rec['step_ms_median']:.1f} ms a step, "
+              f"{rec['peak_memory_gb']:.2f} GB", flush=True)
+        del trainer, state, weights
+        torch.cuda.empty_cache()
+    return out, weights0
+
+
+def mesh_step(inputs, weights0) -> dict:
+    """A world of one through NCCL: ``initialize``, ``make_mesh(1, 1)``,
+    ``shard_params``, ``shard_batch`` and ``train_step`` bit-equal to the
+    unmeshed step (cuDNN in its deterministic mode for the three runs: its
+    default weight-gradient algorithms sum with atomics, so two plain steps
+    differ in the last bits); step ms between two plain runs; the group
+    destroyed."""
+    import socket
+    import torch
+    from yolo_continuous_tpu_torch.config.plan import TrainPlan
+    from yolo_continuous_tpu_torch.parallel import distributed as dist
+    from yolo_continuous_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_params
+    from yolo_continuous_tpu_torch.train.train_loop import Trainer
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    dist.initialize(f"localhost:{port}", 1, 0, device="cuda", timeout_s=120)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            fail(f"mesh: the group's backend is {torch.distributed.get_backend()}, not nccl")
+        mesh = make_mesh(1, 1)
+        init_s = time.perf_counter() - t0
+        plan = TrainPlan("cfg/coco_train.yaml")
+        plan.image_size, plan.batch_size, plan.max_boxes = SIZE, BS, 64
+        times, base = {}, None
+        for label, m in (("plain", None), ("mesh", mesh), ("plain_again", None)):
+            trainer = Trainer(plan, device="cuda", mesh=m)
+            state = trainer.init_state(state_dict=weights0)
+            batch = inputs
+            if m is not None:
+                shard_params(m, state)
+                batch = shard_batch(m, inputs)
+            first = trainer.train_step(state, *batch, 0.01, 0.1, 0.937)[1]
+            after = flat_state(state)
+            if base is None:
+                base = dict(first=first, weights=after)
+            else:
+                if not all(torch.equal(first[k], base["first"][k]) for k in first):
+                    fail(f"mesh: the {label} step's loss parts {first} differ from the "
+                         f"plain step's {base['first']}")
+                bad = [k for k, v in base["weights"].items() if not torch.equal(after[k], v)]
+                if bad:
+                    fail(f"mesh: {len(bad)} state tensors of the {label} step differ from the "
+                         f"plain step's, e.g. {bad[:3]}")
+            ms = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                trainer.train_step(state, *batch, 0.01, 0.1, 0.937)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+            times[label] = dict(step_ms_median=float(np.median(ms)), step_ms=ms)
+            if label != "plain_again":
+                times[label]["launches_per_step"] = launches_of(
+                    lambda: trainer.train_step(state, *batch, 0.01, 0.1, 0.937))
+            del trainer, state, after
+        return dict(backend="nccl", world=1, layout="1 x 1", init_s=init_s,
+                    bit_equal="loss parts and every state tensor, cudnn.deterministic", **times)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.shutdown()
+        torch.cuda.empty_cache()
+
+
+def tools_check(root: str, trainer, total: dict) -> dict:
+    """``gen_anchors`` on the phase's annotation file (as VOC XMLs), and
+    ``torch_export`` of the phase's ``.train.pt``: a Detector on the ``.pth``
+    against a Detector on the ``.train.pt``, bit for bit on 16 images."""
+    import cv2
+    import torch
+    from yolo_continuous_tpu_torch.detect_api import Detector, weights_source
+    from yolo_continuous_tpu_torch.ops.preprocess import letterbox
+    from yolo_continuous_tpu_torch.tools.gen_anchors import gen_anchors
+    from yolo_continuous_tpu_torch.tools.torch_export import export_checkpoint
+    from yolo_continuous_tpu_torch.train.checkpoint import (load_checkpoint, serving_state_dict,
+                                                            train_checkpoint_path)
+    plan = trainer.plan
+    voc = write_voc(root, os.path.join(root, "train.txt"))
+    anchors = gen_anchors(voc, (SIZE, SIZE), 9, os.path.join(root, "anchors.txt"), seed=0)
+    areas = anchors[:, 0] * anchors[:, 1]
+    if anchors.shape != (9, 2) or not (anchors > 0).all() or (np.diff(areas) < 0).any():
+        fail(f"gen_anchors: {anchors}")
+    ckpt = train_checkpoint_path(plan.save_path)
+    pth = os.path.splitext(plan.save_path)[0] + ".pth"
+    sd = export_checkpoint(plan, pth)
+    if weights_source(plan.save_path) != pth:
+        fail(f"torch_export: the Detector would not read {pth}")
+    with open(os.path.join(root, "val.txt")) as f:
+        paths = [line.split()[0] for line in f if line.strip()][:BS]
+    images = torch.from_numpy(np.stack([letterbox(cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB),
+                                                  SIZE)[0] for p in paths]).astype(np.float32)
+                              / 255.0).cuda()
+    dets = {"pth": Detector(plan, device="cuda"),
+            "train_pt": Detector(plan, device="cuda",
+                                 state_dict=serving_state_dict(load_checkpoint(ckpt)))}
+    outs = {}
+    for name, det in dets.items():
+        det(images, 0.01, IOU, 300)
+        torch.cuda.synchronize()
+        for fn in counters():
+            fn.launches = 0
+        outs[name] = det(images, 0.01, IOU, 300)
+        torch.cuda.synchronize()
+        for fn in counters():
+            total[fn.__name__] += fn.launches
+    if not all(torch.equal(a, b) for a, b in zip(outs["pth"], outs["train_pt"])):
+        fail("torch_export: the Detector on the .pth differs from the one on the .train.pt")
+    return dict(anchors=anchors.round(2).tolist(), exported_tensors=len(sd),
+                kept=int(outs["pth"][3].sum()), detections="bit-equal (conf 0.01, 16 images)")
+
+
+def phase_parallel_and_tools():
+    """Phase 9: the perspective, remat, the mesh and the tools, at full width."""
+    import shutil
+    import torch
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "runs", "chip_smoke_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    total = {fn.__name__: 0 for fn in counters()}
+    rec = {}
+    t0 = time.perf_counter()
+    trainer, rec["perspective"] = perspective_run(root, total)
+    rec["perspective"]["seconds"] = time.perf_counter() - t0
+    rec["enhance_package"] = enhance_package_card_vs_cpu()
+    t0 = time.perf_counter()
+    inputs = train_inputs(np.random.RandomState(0), BS, SIZE, 64, "cuda")
+    rec["remat"], weights0 = remat_steps(inputs)
+    rec["remat_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["mesh"] = mesh_step(inputs, weights0)
+    rec["mesh"]["seconds"] = time.perf_counter() - t0
+    rec["tools"] = tools_check(root, trainer, total)
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    rec.update(launches_parallel=total, phase_s=time.perf_counter() - t_phase,
+               config="cfg/coco_train.yaml yolov7 640px bf16 body, batch 16",
+               card=smi.stdout.strip())
+    print(json.dumps({"parallel_and_tools": rec}), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port")
-    ap.add_argument("--only", choices=["serve"],
+    ap.add_argument("--only", choices=["serve", "parallel_and_tools"],
                     help="build the kernels and run this phase alone (a debugging aid: "
                          "it prints no result line)")
     ap.add_argument("--serve-clients", nargs=2, metavar=("PORT", "JPEGS"),
@@ -2266,9 +2661,9 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    if args.only == "serve":
-        phase_serve()
-        print("chip_smoke: --only serve passed (no result line)", flush=True)
+    if args.only:
+        {"serve": phase_serve, "parallel_and_tools": phase_parallel_and_tools}[args.only]()
+        print(f"chip_smoke: --only {args.only} passed (no result line)", flush=True)
         return
 
     plan = random_weights_plan()
@@ -2287,6 +2682,7 @@ def main() -> None:
     launches_validate_map = phase_train_run()
     launches_model_zoo, k3_p6 = phase_model_zoo()
     launches_serve = phase_serve()
+    launches_parallel = phase_parallel_and_tools()
 
     meta = {
         "decode_level": ("csrc/decode.cu", "yolo_continuous_tpu/kernels/decode_pallas.py:67",
@@ -2318,6 +2714,7 @@ def main() -> None:
                             launches_validate_map=launches_validate_map[counter],
                             launches_model_zoo=launches_model_zoo[counter],
                             launches_serve=launches_serve[counter],
+                            launches_parallel=launches_parallel[counter],
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], **other))

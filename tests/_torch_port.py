@@ -270,14 +270,15 @@ def jax_batch_draw(key, cfg, B: int, T: int, max_boxes: int, mosaic, mixup):
     batch's flags ``mosaic`` and ``mixup``, as the port's ``BatchDraw`` (CPU
     tensors): JAX's key splits replayed in JAX
     (``ops/augment.py:224-231`` single, ``:274-284`` mosaic, ``:355`` and
-    ``enhance.py:118-121`` post-enhance, ``:425-428`` per sample, ``:474``
-    copy-paste). Feeding these to the port's apply step must give JAX's
+    ``enhance.py:118-121`` post-enhance with the perspective of
+    ``enhance.py:148-178`` when ``cfg.use_perspective``, ``:425-428`` per
+    sample, ``:474`` copy-paste). Feeding these to the port's apply step must give JAX's
     outputs."""
     import jax
     import torch
     from yolo_continuous_tpu_torch.ops.augment import (BatchDraw, MosaicDraw, SingleDraw,
-                                                       paste_boxes)
-    from yolo_continuous_tpu_torch.ops.enhance import EnhanceDraw
+                                                       paste_boxes, perspective_cfg)
+    from yolo_continuous_tpu_torch.ops.enhance import EnhanceDraw, perspective_from_uniforms
 
     def u(k, lo, hi, shape=()):
         return np.asarray(jax.random.uniform(k, shape, np.float32, lo, hi))
@@ -288,10 +289,11 @@ def jax_batch_draw(key, cfg, B: int, T: int, max_boxes: int, mosaic, mixup):
         return [u(k1, 1 - j, 1 + j), u(k2, 1 - j, 1 + j)], u(k3, lo, hi)
 
     def enhance(k):
-        _, kf, ke = jax.random.split(k, 3)
+        kp, kf, ke = jax.random.split(k, 3)
         k1, k2 = jax.random.split(kf)
-        return [float(jax.random.uniform(k1)) < 0.0, float(jax.random.uniform(k2)) < cfg.flip_ud,
-                float(jax.random.uniform(ke)) < cfg.equalize]
+        flags = [float(jax.random.uniform(k1)) < 0.0, float(jax.random.uniform(k2)) < cfg.flip_ud,
+                 float(jax.random.uniform(ke)) < cfg.equalize]
+        return flags, perspective_uniforms(jax.random.split(kp)[0], perspective_cfg(cfg))
 
     rec = {n: [] for n in ("ar", "scale", "dxy", "flip", "hsv", "partner", "post",
                            "m_off", "m_ar", "m_scale", "m_flip", "m_hsv")}
@@ -326,7 +328,12 @@ def jax_batch_draw(key, cfg, B: int, T: int, max_boxes: int, mosaic, mixup):
         return torch.from_numpy(np.asarray(rec[name], dtype))
 
     def e(name):
-        return EnhanceDraw(*torch.from_numpy(np.asarray(rec[name], bool)).T)
+        flags = torch.from_numpy(np.asarray([f for f, _ in rec[name]], bool)).T
+        persp = None
+        if cfg.use_perspective:
+            values = torch.from_numpy(np.asarray([v for _, v in rec[name]], np.float32))
+            persp = perspective_from_uniforms(values, cfg.size, cfg.size)
+        return EnhanceDraw(*flags, persp)
 
     m_draw = MosaicDraw(t("m_off"), t("m_ar"), t("m_scale"), t("m_flip", bool), t("m_hsv"))
     return BatchDraw.of(single=SingleDraw(t("ar"), t("scale"), t("dxy"), t("flip", bool),
@@ -334,6 +341,16 @@ def jax_batch_draw(key, cfg, B: int, T: int, max_boxes: int, mosaic, mixup):
                         partner=e("partner"), mosaic=m_draw if T == 4 else None, post=e("post"),
                         paste=torch.from_numpy(np.array(paste)), mosaic_flag=mosaic,
                         mixup_flag=mixup)
+
+
+def perspective_uniforms(key, cfg) -> list:
+    """The 8 uniforms JAX's ``_perspective_matrix(key, ...)`` draws
+    (``enhance.py:148-178``: ``split(key, 8)``, one value a key), for the
+    port's ``enhance.perspective_from_uniforms``."""
+    import jax
+    from yolo_continuous_tpu_torch.ops.enhance import perspective_ranges
+    return [float(jax.random.uniform(k, (), np.float32, lo, hi))
+            for k, (lo, hi) in zip(jax.random.split(key, 8), perspective_ranges(cfg))]
 
 
 def write_dataset(root, n: int, seed: int = 0, shapes=((48, 64), (64, 48), (64, 64), (40, 72)),
@@ -359,3 +376,44 @@ def write_dataset(root, n: int, seed: int = 0, shapes=((48, 64), (64, 48), (64, 
     ann = root / "train.txt"
     ann.write_text("".join(lines))
     return str(ann)
+
+
+# A shallow IDetect net for the multi-process tests: every row's kernel is
+# at least 16 channels wide, so that min_channels 16 shards them over
+# "model" (a depthwise conv, RepConv branches, the head's ImplicitA), and
+# the head's 21-channel LogitConvs and ImplicitMs stay replicated.
+SHARD_NET = {"depth_multiple": 1.0, "width_multiple": 1.0,
+             "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "Conv", [32, 3, 2]],
+                          [-1, 1, "DWConv", [32, 3, 1]], [-1, 1, "Conv", [32, 3, 2]],
+                          [-1, 1, "RepConv", [64, 3, 2]], [-1, 1, "Conv", [64, 3, 2]]],
+             "head": [[[3, 4, 5], 1, "IDetect", ["nc", "anchors"]]]}
+SHARD_MIN_CHANNELS = 16
+
+
+def dist_plan_cfg(case: str, global_bs: int, size: int = 64, max_gt: int = 8) -> dict:
+    """The plan of a multi-process test: the shallow net (``"shallow"``), or
+    ``cfg/raccoon_tiny.yaml`` (yolov7-tiny, Adam) as the JAX package's
+    ``tests/_dist_worker.py`` sizes it (``"raccoon"``)."""
+    if case == "raccoon":
+        import os
+        from yolo_continuous_tpu_torch.config.plan import cvt_cfg
+        here = os.path.dirname(os.path.abspath(__file__))
+        cfg = dict(cvt_cfg(os.path.join(here, "..", "cfg", "raccoon_tiny.yaml")))
+        cfg.update(image_size=size, max_boxes=max_gt, batch_size=global_bs)
+        return cfg
+    return dict(tiny_plan_cfg("IDetect", size), model_cfg=SHARD_NET, batch_size=global_bs,
+                max_boxes=max_gt)
+
+
+def dist_batch(global_bs: int, size: int = 64, max_gt: int = 8):
+    """The global batch of the multi-process tests (``_dist_worker.py``'s):
+    images from ``RandomState(0)``, one or two labels an image."""
+    rs = np.random.RandomState(0)
+    images = rs.rand(global_bs, size, size, 3).astype(np.float32)
+    labels = np.zeros((global_bs, max_gt, 5), np.float32)
+    labels[:, 0] = [0, 0.5, 0.5, 0.4, 0.4]
+    labels[::2, 1] = [1, 0.3, 0.3, 0.2, 0.25]
+    lmask = np.zeros((global_bs, max_gt), bool)
+    lmask[:, 0] = True
+    lmask[::2, 1] = True
+    return images, labels, lmask

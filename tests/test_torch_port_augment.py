@@ -289,9 +289,20 @@ def test_cap_boxes_keeps_the_first_valid_in_order():
 
 
 def test_perspective_and_the_rest_of_enhance_raise():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        P._post_enhance(None, None, None, None, P.AugConfig(use_perspective=True))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        PE.EnhancePackage(64, {})
-    with pytest.raises(NotImplementedError, match="item 16"):
-        PE.letter_box(None, None, None, None)
+    """The perspective, ``EnhancePackage`` and the device ``letter_box`` run
+    and raise nothing: ``_post_enhance`` applies the perspective first (its
+    parity with JAX is ``test_torch_port_enhance.py``'s)."""
+    tiles, metas, boxes, masks = _inputs(2, 1, seed=14)
+    img = torch.from_numpy(tiles[:, 0]).float()
+    bx, bm = torch.from_numpy(boxes[:, 0]), torch.from_numpy(masks[:, 0])
+    cfg = P.AugConfig(size=S, use_perspective=True)
+    draw = P.draw_post_enhance(torch.Generator().manual_seed(0), cfg, 2)
+    got = P._post_enhance(draw, img, bx, bm, cfg)
+    want = PE.random_perspective(draw.perspective, img, bx, bm)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    pkg = PE.EnhancePackage(S, {})
+    out = pkg(pkg.draw(torch.Generator(), 2, S, S), img, bx, bm)
+    assert out[0].shape == (2, S, S, 3)
+    out = PE.letter_box(torch.tensor([True, False]), img, bx, bm, 32)
+    assert out[0].shape == (2, 32, 32, 3)

@@ -899,3 +899,105 @@ def test_batching_engine_round_trip_on_the_card(cuda):
         assert eng.stats()["batches"] == 1 and eng.stats()["mean_batch_fill"] == 1.0
     finally:
         eng.close()
+
+
+# ---------------------------------------------------------------------------
+# the perspective, remat and the mesh on the card
+# ---------------------------------------------------------------------------
+
+def test_perspective_and_enhance_package_on_the_card(cuda):
+    """The same draws on the card and on the CPU: images within 1e-2 on
+    0..255 (grid_sample's bilinear weights), boxes and masks bit-equal (the
+    corner transform is elementwise)."""
+    from yolo_continuous_tpu_torch.ops.enhance import EnhancePackage, random_perspective
+    rs = np.random.RandomState(0)
+    img = torch.from_numpy(rs.randint(0, 256, (4, 48, 56, 3)).astype(np.float32))
+    boxes = torch.from_numpy(np.concatenate([rs.uniform(0, 20, (4, 5, 2)),
+                                             rs.uniform(25, 48, (4, 5, 2)),
+                                             rs.randint(0, 3, (4, 5, 1))], -1).astype(np.float32))
+    mask = torch.ones(4, 5, dtype=torch.bool)
+    for persp in (0.0, 1e-3):
+        pkg = EnhancePackage(64, {"equalize": 0.5, "scale_fill": 0.5, "perspective": persp},
+                             use_perspective=True)
+        draw = pkg.draw(torch.Generator().manual_seed(1), 4, 48, 56)
+        cpu = pkg(draw, img, boxes, mask)
+        card = pkg(draw.to(cuda), img.to(cuda), boxes.to(cuda), mask.to(cuda))
+        torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=0, atol=1e-2)
+        assert torch.equal(card[1].cpu(), cpu[1]) and torch.equal(card[2].cpu(), cpu[2])
+        p = draw.enhance.perspective
+        cpu = random_perspective(p, img, boxes, mask, persp)
+        card = random_perspective(aug.to_record_device(p, cuda), img.to(cuda), boxes.to(cuda),
+                                  mask.to(cuda), persp)
+        torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=0, atol=1e-2)
+        assert torch.equal(card[1].cpu(), cpu[1]) and torch.equal(card[2].cpu(), cpu[2])
+
+
+def _tiny_step(cuda, remat=None, mesh=None, **keys):
+    cfg = dict(tiny_plan_cfg("Detect", 64), model_cfg="cfg/net/yolov7-tiny.yaml", **keys)
+    tr = Trainer(TrainPlan(cfg), device=cuda, dtype=torch.float32, remat=remat, mesh=mesh)
+    state = tr.init_state(seed=0)
+    if mesh is not None:
+        from yolo_continuous_tpu_torch.parallel.mesh import shard_params
+        shard_params(mesh, state)
+    rs = np.random.RandomState(0)
+    images = rs.rand(2, 64, 64, 3).astype(np.float32)
+    labels = np.zeros((2, 8, 5), np.float32)
+    labels[:, 0] = [0, 0.5, 0.5, 0.4, 0.4]
+    lmask = np.zeros((2, 8), bool)
+    lmask[:, 0] = True
+    state, metrics = tr.train_step(state, images, labels, lmask, 0.01, 0.1, 0.937)
+    return metrics, {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+
+
+@pytest.mark.parametrize("bn_remat,remat", [(True, None), (False, "full"), (False, "conv"),
+                                            (False, "dots")])
+def test_remat_steps_on_the_card(cuda, bn_remat, remat):
+    """The first forward is the plain one: loss parts and running statistics
+    equal; the recomputed backward updates the weights within 1e-5 relative
+    L2 of the plain step's (cuDNN may pick another algorithm)."""
+    want, want_sd = _tiny_step(cuda)
+    got, got_sd = _tiny_step(cuda, remat=remat, bn_remat=bn_remat)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    for k, v in want_sd.items():
+        if "running_" in k:
+            assert torch.equal(got_sd[k], v), k
+    num = sum(float(((got_sd[k] - v).double() ** 2).sum()) for k, v in want_sd.items()
+              if v.is_floating_point())
+    den = sum(float((v.double() ** 2).sum()) for v in want_sd.values() if v.is_floating_point())
+    assert (num / den) ** 0.5 < 1e-5
+
+
+def test_world_of_one_nccl_mesh_step_is_bit_equal(cuda, tmp_path, monkeypatch):
+    """cuDNN in its deterministic mode: its default weight-gradient
+    algorithms sum with atomics, so two plain steps differ in the last bits."""
+    from yolo_continuous_tpu_torch.parallel import distributed as D
+    from yolo_continuous_tpu_torch.parallel.mesh import make_mesh
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    want, want_sd = _tiny_step(cuda, bn_remat=True)
+    D.initialize(f"file://{tmp_path / 'store'}", 1, 0, device="cuda", timeout_s=60)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        got, got_sd = _tiny_step(cuda, mesh=make_mesh(1, 1), bn_remat=True)
+    finally:
+        D.shutdown()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    for k, v in want_sd.items():
+        assert torch.equal(got_sd[k], v), k
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """A 1 x 2 mesh of two processes on the one card, meeting through gloo
+    (NCCL puts no two ranks on one device): the sharded convolutions,
+    depthwise and RepConv slices and gathered implicits on CUDA tensors,
+    against the 1-process fp32 step on the card (rtol 1e-4: cuDNN may pick
+    other algorithms for the channel slices)."""
+    import test_torch_port_distributed as TD
+    got = TD._run_ranks(tmp_path, 1, 2, "shallow", False, device="cuda")
+    metrics, state = TD._single_process("shallow", False, device=cuda)
+    assert any(k.endswith("implicit") for k in got["shards"])
+    for k in ("loss", "box", "obj", "cls"):
+        np.testing.assert_allclose(float(got["metrics"][k]), float(metrics[k]), rtol=1e-4,
+                                   err_msg=k)
+    assert TD._rel_l2(got["state"]["model"], state["model"].state_dict()) < 1e-4

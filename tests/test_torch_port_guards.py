@@ -33,7 +33,9 @@ def test_every_port_module_is_scanned():
     for rel in ("data/dataset.py", "ops/augment.py", "ops/enhance.py",
                 "eval/evaluator.py", "eval/validate.py", "train/__main__.py", "val.py",
                 "nn/fuse.py", "nn/yolo_body.py", "losses/bin_loss.py", "nn/quant.py",
-                "serve.py", "utils/timing.py"):
+                "serve.py", "utils/timing.py", "parallel/mesh.py", "parallel/distributed.py",
+                "tools/gen_anchors.py", "tools/gen_annotation.py", "tools/torch_import.py",
+                "tools/torch_export.py", "utils/image.py", "utils/env.py"):
         assert f"yolo_continuous_tpu_torch/{rel}" in FILES
 
 
@@ -61,6 +63,10 @@ import yolo_continuous_tpu_torch.nn.fuse, yolo_continuous_tpu_torch.nn.yolo_body
 import yolo_continuous_tpu_torch.losses.bin_loss
 import yolo_continuous_tpu_torch.nn.quant, yolo_continuous_tpu_torch.serve
 import yolo_continuous_tpu_torch.utils.timing
+import yolo_continuous_tpu_torch.parallel.mesh, yolo_continuous_tpu_torch.parallel.distributed
+import yolo_continuous_tpu_torch.tools.gen_anchors, yolo_continuous_tpu_torch.tools.gen_annotation
+import yolo_continuous_tpu_torch.tools.torch_import, yolo_continuous_tpu_torch.tools.torch_export
+import yolo_continuous_tpu_torch.utils.image, yolo_continuous_tpu_torch.utils.env
 import torch
 from yolo_continuous_tpu_torch.kernels import _build
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r} or m == "triton")

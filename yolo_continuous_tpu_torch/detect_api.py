@@ -31,6 +31,7 @@ from .ops.decode import decode_outputs, decode_outputs_bin
 from .ops.nms import batched_nms, yolo_correct_boxes
 from .ops.preprocess import cv2, letterbox
 from .tools.jax_weights import state_dict_from_jax
+from .tools.torch_import import load_torch_checkpoint
 from .train.checkpoint import (jax_weights, load_checkpoint, read_jax_msgpack, serving_state_dict,
                                train_checkpoint_path)
 
@@ -98,8 +99,8 @@ def saved_weights(save_path: str, spec, use_ema: bool = True):
     pth, train_ckpt, _ = weights_candidates(save_path)
     if path is None:
         return None
-    if path == pth:
-        return torch.load(pth, map_location="cpu", weights_only=True)
+    if path == pth:     # a reference state dict, its names resolved as the JAX importer does
+        return load_torch_checkpoint(pth, spec)
     if path == train_ckpt:
         return serving_state_dict(load_checkpoint(train_ckpt), use_ema)
     return state_dict_from_jax(spec, *jax_weights(read_jax_msgpack(path), use_ema))

@@ -22,6 +22,7 @@ from typing import Sequence
 import torch
 
 from ..ops.boxes import bbox_iou
+from ..parallel.mesh import global_count, global_mean
 from ..ops.sigmoid_bin import SigmoidBinCfg, sigmoid_bin_decode, sigmoid_bin_training_loss
 from .focal import qfocal_loss
 from .yolo_loss import (LossConfig, _balance_for_stride, _candidates_level, _const, _masked_mean,
@@ -101,7 +102,7 @@ def bin_yolo_loss(preds: Sequence[torch.Tensor], targets: torch.Tensor, tmask: t
     for i, c in enumerate(cand):
         sel = fg_lvl[i] & c["mask"]
         sel_f = sel.float()
-        count = sel.sum().float()
+        count = global_count(sel.sum().float())    # over the global batch under a mesh
         h, w, stride = c["h"], c["w"], c["stride"]
         na = preds[i].shape[3]
         p = c["p"]
@@ -135,7 +136,7 @@ def bin_yolo_loss(preds: Sequence[torch.Tensor], targets: torch.Tensor, tmask: t
                              "amax")
         tobj = tobj.clamp(min=0.0).reshape(bs, h, w, na)
         obj_elem = qfocal_loss(preds[i][..., lay["obj"]].float(), tobj, cfg.fl_gamma, cfg.fl_alpha)
-        obj_t.append(obj_elem.mean() * _balance_for_stride(stride))
+        obj_t.append(global_mean(obj_elem) * _balance_for_stride(stride))
 
         t = cn + (cp - cn) * _one_hot(tsel[..., 0].to(torch.int32), nc).float()
         cls_elem = qfocal_loss(p[..., lay["cls"]], t, cfg.fl_gamma, cfg.fl_alpha)

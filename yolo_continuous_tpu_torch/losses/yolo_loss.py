@@ -30,6 +30,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..ops.boxes import bbox_iou, box_iou
+from ..parallel.mesh import global_count, global_mean
 from .focal import qfocal_loss
 
 _BIG = 1e9
@@ -256,7 +257,7 @@ def yolo_loss(preds: Sequence[torch.Tensor], targets: torch.Tensor, tmask: torch
         box_total, obj_total, cls_total = [], [], []
         for i, (pl, c) in enumerate(zip(preds_lvl, cand_lvl)):
             sel = fg_lvl[i] & c["mask"]                             # (bs,C)
-            count = sel.sum().float()
+            count = global_count(sel.sum().float())     # over the global batch under a mesh
             self_f = sel.float()
             h, w, stride = c["h"], c["w"], c["stride"]
             na = pl.shape[3]
@@ -284,7 +285,7 @@ def yolo_loss(preds: Sequence[torch.Tensor], targets: torch.Tensor, tmask: torch
             tobj.scatter_reduce_(0, flat_idx.reshape(-1), vals.reshape(-1), "amax")
             tobj = tobj.clamp(min=0.0).reshape(bs, h, w, na)
             obj_elem = qfocal_loss(pl[..., 4].float(), tobj, cfg.fl_gamma, cfg.fl_alpha)
-            obj_total.append(obj_elem.mean() * _balance_for_stride(stride))
+            obj_total.append(global_mean(obj_elem) * _balance_for_stride(stride))
 
             # cls loss; :109-112
             t = cn + (cp - cn) * _one_hot(tsel[..., 0].to(torch.int32),

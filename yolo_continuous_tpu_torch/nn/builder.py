@@ -442,6 +442,17 @@ class YoloModel(nn.Module):
     inside SPPCSPC): eligible ones run as K5 in eval mode
     (``layers.Conv``).
 
+    ``bn_remat`` (plan key ``bn_remat``; JAX ``builder.py:335-346``): in train
+    mode every BatchNorm and activation tail runs under a per-block
+    checkpoint that keeps only the conv output (``layers.bn_tail_remat``);
+    the same ops in the same order, so the loss and the gradients are
+    bit-equal to the plain forward's.
+
+    ``remat_ctx`` (set by the ``Trainer``'s ``remat``; None by default): in
+    train mode each row runs under its own ``checkpoint`` with this
+    ``context_fn`` (``layers.remat_context_fn``), so the backward recomputes
+    the forward a row at a time and only the rows' outputs stay saved.
+
     ``quant_mode`` (None, "calib" or "int8"; JAX ``builder.py:339-348``)
     applies in eval mode only: every ``layers.Conv`` of the net, nested ones
     too, records its input's max-abs ("calib") or runs int8 ("int8", after
@@ -450,13 +461,16 @@ class YoloModel(nn.Module):
     the recorded amax values, keyed ``<module name>.amax``.
     """
 
-    def __init__(self, spec: ModelSpec, fused_tails: bool = False, quant_mode=None):
+    def __init__(self, spec: ModelSpec, fused_tails: bool = False, quant_mode=None,
+                 bn_remat: bool = False):
         super().__init__()
         if quant_mode not in (None, "calib", "int8"):
             raise ValueError(f"quant_mode must be None, 'calib' or 'int8', got {quant_mode!r}")
         self.spec = spec
         self.dtype = torch.float32
         self.quant_mode = quant_mode
+        self.bn_remat = bool(bn_remat)
+        self.remat_ctx = None
         self.model = nn.ModuleList([_make_layer(s, spec, fused_tails) for s in spec.layers])
 
     def set_dtype(self, dtype: torch.dtype, cast_weights: bool = True,
@@ -518,7 +532,8 @@ class YoloModel(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor):
-        with L.quant_ctx(None if self.training else self.quant_mode):
+        with L.bn_tail_remat(self.bn_remat and self.training), \
+                L.quant_ctx(None if self.training else self.quant_mode):
             return self._walk(x)
 
     def _walk(self, x: torch.Tensor):
@@ -531,7 +546,11 @@ class YoloModel(nn.Module):
                     out = saved[s.f % s.i]
                 else:
                     out = [out if j == -1 else saved[j % s.i] for j in s.f]
-            out = m(out)
+            if self.remat_ctx is not None and self.training:
+                from torch.utils.checkpoint import checkpoint
+                out = checkpoint(m, out, use_reentrant=False, context_fn=self.remat_ctx)
+            else:
+                out = m(out)
             if s.i in self.spec.save:
                 saved[s.i] = out
         return out

@@ -54,6 +54,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.fused_conv import fused_pointwise_conv
+from ..parallel.mesh import (active_mesh, all_reduce_sum, gather_from_model,
+                             sharded_conv)
 from . import quant as Q
 
 # True -> SiLU (the reference default), a str name, or ("leaky_relu", slope)
@@ -99,6 +101,73 @@ def quant_mode():
     return getattr(_QUANT, "mode", None)
 
 
+# Recomputation (JAX ``layers.py:47-80``, ``train_loop.py:50-74``). In
+# ``bn_tail_remat`` scope each train-mode BatchNorm computes its statistics,
+# normalize and activation inside a per-block checkpoint that saves only its
+# input (the conv output); the rest, the two (c,) statistics too, is
+# recomputed in the backward (JAX saves the statistics; a selective
+# checkpoint that kept them runs every op of every tail through a Python
+# dispatch mode, which more than doubled a yolov7 @640 step on an H100).
+# ``recompute_scope`` marks a forward that a checkpoint recomputes in the
+# backward: BatchNorm then leaves its running statistics alone, which the
+# first forward updated (JAX is functional and cannot update them twice;
+# torch would). Per thread: the backward recomputes on the thread that
+# runs it.
+_REMAT = threading.local()
+
+
+@contextlib.contextmanager
+def bn_tail_remat(enabled: bool):
+    """Train-mode BatchNorm tails called in this scope (and this thread) run
+    under the per-block checkpoint."""
+    prev = getattr(_REMAT, "bn_tail", False)
+    _REMAT.bn_tail = bool(enabled)
+    try:
+        yield
+    finally:
+        _REMAT.bn_tail = prev
+
+
+@contextlib.contextmanager
+def recompute_scope():
+    """A checkpoint's recomputation of a forward: no running-statistics
+    update."""
+    prev = getattr(_REMAT, "recompute", False)
+    _REMAT.recompute = True
+    try:
+        yield
+    finally:
+        _REMAT.recompute = prev
+
+
+def recomputing() -> bool:
+    return getattr(_REMAT, "recompute", False)
+
+
+@contextlib.contextmanager
+def _entered(*scopes):
+    with contextlib.ExitStack() as stack:
+        for scope in scopes:
+            stack.enter_context(scope)
+        yield
+
+
+def remat_context_fn(policy, bn_tail: bool):
+    """``checkpoint``'s ``context_fn`` for a row of a model under ``remat``:
+    ``policy`` None recomputes everything, else the selective checkpoint
+    contexts that save the outputs of the ops in ``policy``; the
+    recomputation runs in ``recompute_scope`` and with the model's
+    ``bn_tail_remat`` setting, as the first forward did."""
+    def context_fn():
+        scopes = [recompute_scope(), bn_tail_remat(bn_tail)]
+        if policy is None:
+            return contextlib.nullcontext(), _entered(*scopes)
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        forward, recompute = create_selective_checkpoint_contexts(policy)
+        return forward, _entered(recompute, *scopes)
+    return context_fn
+
+
 def apply_act(x: torch.Tensor, act: ActSpec) -> torch.Tensor:
     """The activation specs of JAX ``apply_act`` (``layers.py:115-128``)."""
     if act is True or act == "silu":
@@ -121,11 +190,32 @@ BN_MOMENTUM = 0.9   # flax's momentum: running = 0.9 * running + 0.1 * batch
 
 def batch_stats(x: torch.Tensor):
     """Per-channel mean and biased variance of NCHW ``x`` over (N, H, W), in
-    fp32, as JAX ``_batch_stats``: ``max(E[x^2] - E[x]^2, 0)``."""
+    fp32, as JAX ``_batch_stats``: ``max(E[x^2] - E[x]^2, 0)``. Under an
+    active mesh (``parallel/mesh.use_mesh``) over the global batch: the two
+    means summed over "data" with their gradient, divided by its size."""
     xf = x.float()
     mean = xf.mean((0, 2, 3))
-    var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    mean2 = (xf * xf).mean((0, 2, 3))
+    mesh = active_mesh()
+    if mesh is not None:
+        both = all_reduce_sum(torch.stack([mean, mean2]), mesh.data_group)
+        both = both / float(mesh.shape["data"])
+        mean, mean2 = both[0], both[1]
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
     return mean, var
+
+
+def _bn_train(x, weight, bias, eps: float, act):
+    """Train-mode BatchNorm and activation: (output, mean, var)."""
+    mean, var = batch_stats(x)
+    inv = weight * torch.rsqrt(var + eps)
+    shift = bias - mean * inv
+    return apply_act(x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None],
+                     act), mean, var
+
+
+def _recompute_contexts():
+    return contextlib.nullcontext(), recompute_scope()
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -144,29 +234,50 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(c, eps=eps, momentum=1.0 - flax_momentum)
         self.flax_momentum = flax_momentum
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            mean, var = batch_stats(x)
+    def forward(self, x: torch.Tensor, act: ActSpec = None) -> torch.Tensor:
+        """BatchNorm, then the activation ``act`` (none by default)."""
+        if not self.training:
+            inv = self.weight * torch.rsqrt(self.running_var + self.eps)
+            shift = self.bias - self.running_mean * inv
+            return apply_act(x * inv.to(x.dtype)[:, None, None]
+                             + shift.to(x.dtype)[:, None, None], act)
+        if getattr(_REMAT, "bn_tail", False):
+            from torch.utils.checkpoint import checkpoint
+            out, mean, var = checkpoint(_bn_train, x, self.weight, self.bias, self.eps, act,
+                                        use_reentrant=False, context_fn=_recompute_contexts)
+        else:
+            out, mean, var = _bn_train(x, self.weight, self.bias, self.eps, act)
+        if not recomputing():
             with torch.no_grad():
-                n = x.numel() / x.shape[1]
+                mesh = active_mesh()
+                n = x.numel() / x.shape[1] * (mesh.shape["data"] if mesh is not None else 1)
                 m = self.flax_momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                 unbiased = var * (n / max(n - 1.0, 1.0))
                 self.running_var.copy_(m * self.running_var + (1 - m) * unbiased)
-        else:
-            mean, var = self.running_mean, self.running_var
-        inv = self.weight * torch.rsqrt(var + self.eps)
-        shift = self.bias - mean * inv
-        return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        return out
 
 
 class BodyConv2d(nn.Conv2d):
     """A body convolution: its weight is cast to the input's dtype on every
     call (a no-op once ``YoloModel.set_dtype`` has cast it), so fp32 master
-    weights train a bf16 body."""
+    weights train a bf16 body. With ``mesh`` set (``parallel/mesh.shard_params``)
+    the weight is this rank's slice of the output channels and the output is
+    gathered whole (``parallel/mesh.sharded_conv``)."""
+
+    mesh = None
+
+    def _local(self, x, w, groups):
+        return F.conv2d(x, w, None, self.stride, self.padding, self.dilation, groups)
+
+    def conv_nobias(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype)
+        if self.mesh is not None:
+            return sharded_conv(self._local, x, w, self.mesh, self.groups)
+        return self._conv_forward(x, w, None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), None)
+        return self.conv_nobias(x)
 
 
 class BiasConv2d(BodyConv2d):
@@ -175,8 +286,7 @@ class BiasConv2d(BodyConv2d):
     dtype, is added after it."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self._conv_forward(x, self.weight.to(x.dtype), None)
-        return y + self.bias.to(x.dtype)[:, None, None]
+        return self.conv_nobias(x) + self.bias.to(x.dtype)[:, None, None]
 
 
 class BodyLinear(nn.Linear):
@@ -199,6 +309,8 @@ class LogitConv(nn.Conv2d):
     that dtype, as JAX's ``preferred_element_type=head_dtype``.
     """
 
+    mesh = None     # sharded output channels, as BodyConv2d's
+
     def __init__(self, c1: int, c2: int):
         super().__init__(c1, c2, 1, bias=True)
         self.mult_dtype = torch.float32
@@ -207,6 +319,9 @@ class LogitConv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(self.mult_dtype).float()
         x = x.to(self.mult_dtype).float()
+        if self.mesh is not None:
+            y = sharded_conv(lambda a, b, g: F.conv2d(a, b), x, w, self.mesh, 1)
+            return y.to(self.out_dtype) + self.bias.to(self.out_dtype)[:, None, None]
         if self.out_dtype == torch.float32:
             return F.conv2d(x, w, self.bias.float())
         return F.conv2d(x, w).to(self.out_dtype) + self.bias.to(self.out_dtype)[:, None, None]
@@ -269,16 +384,17 @@ class Conv(nn.Module):
             if mode == "int8":
                 sx = Q.activation_scale(self.amax)
                 y = Q.dequantize(self.int8_accumulators(x, sx), sx, self.sw, x.dtype)
-                return apply_act(self.bn(y), self.act)
+                return self.bn(y, self.act)
             self.amax = torch.maximum(self.amax, x.detach().abs().amax().float())
-            return apply_act(self.bn(self.conv(x)), self.act)
+            return self.bn(self.conv(x), self.act)
         if self.fused_tail and not self.training and x.shape[1] >= FUSED_TAIL_MIN_CIN:
             bn = self.bn
             inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
             shift = bn.bias - bn.running_mean * inv
             w = self.conv.weight.to(x.dtype).reshape(self.conv.out_channels, -1)
             return fused_pointwise_conv(x.contiguous(), w, inv, shift)
-        return apply_act(self.bn(self.conv(x)), self.act)
+        # the activation inside BatchNorm: it spans the bn_remat checkpoint
+        return self.bn(self.conv(x), self.act)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
@@ -449,9 +565,16 @@ class ConvTranspose(nn.Module):
         self.weight = nn.Parameter(torch.zeros(c2, c1, s, s))
         self.bias = nn.Parameter(torch.zeros(c2))
 
+    mesh = None     # sharded output channels (axis 0 of the weight), as BodyConv2d's
+
     def forward(self, x):
         w = self.weight.to(x.dtype).transpose(0, 1).flip((2, 3))
-        y = F.conv_transpose2d(x, w, None, stride=self.s)
+        if self.mesh is not None:
+            y = sharded_conv(lambda a, b, g: F.conv_transpose2d(a, b.transpose(0, 1), None,
+                                                               stride=self.s),
+                             x, w.transpose(0, 1), self.mesh, 1)
+        else:
+            y = F.conv_transpose2d(x, w, None, stride=self.s)
         return y + self.bias.to(x.dtype)[:, None, None]
 
 
@@ -679,12 +802,14 @@ class ImplicitA(nn.Module):
 
     Adds in the input's dtype (the body dtype, bf16 on CUDA)."""
 
+    mesh = None     # a sharded implicit is gathered whole before use
+
     def __init__(self, c: int):
         super().__init__()
         self.implicit = nn.Parameter(torch.zeros(1, c, 1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.implicit.to(x.dtype)
+        return x + _implicit(self).to(x.dtype)
 
 
 class ImplicitM(nn.Module):
@@ -693,12 +818,18 @@ class ImplicitM(nn.Module):
     the product stays fp32. Drawn around 1 by ``YoloModel.init_weights``
     (the JAX package's deliberate fix; the reference draws around 0)."""
 
+    mesh = None
+
     def __init__(self, c: int):
         super().__init__()
         self.implicit = nn.Parameter(torch.ones(1, c, 1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.implicit.to(x.dtype)
+        return x * _implicit(self).to(x.dtype)
+
+
+def _implicit(m: nn.Module) -> torch.Tensor:
+    return m.implicit if m.mesh is None else gather_from_model(m.implicit, m.mesh, 1)
 
 
 class RepConv(nn.Module):

@@ -35,7 +35,7 @@ class BConv(nn.Module):
         self.bn = BatchNorm2d(c2, eps=1e-3, flax_momentum=0.97)
 
     def forward(self, x):
-        return torch.nn.functional.silu(self.bn(self.conv(x)))
+        return self.bn(self.conv(x), True)   # SiLU inside BatchNorm, as Conv's
 
 
 class Block(nn.Module):

@@ -34,8 +34,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .enhance import (EnhanceDraw, draw_enhance, random_equalize, random_flip,
-                      random_perspective)
+from .enhance import (EnhanceDraw, PerspectiveCfg, draw_enhance, draw_perspective,
+                      random_equalize, random_flip, random_perspective)
 
 GRAY = 128.0  # train-pipeline fill (yolo_dataset_git.py:129,167,327)
 _INV_255 = float(np.float32(1.0 / 255.0))   # images to 0..1 (XLA's form of / 255)
@@ -60,7 +60,9 @@ class AugConfig(NamedTuple):
     flip_lr: float = 0.5            # yolo_dataset_git.py:160-162
     flip_ud: float = 0.0            # enhance.yaml flip_ud
     equalize: float = 0.0           # enhance.yaml equalize
-    use_perspective: bool = False   # not ported yet (ROADMAP item 16)
+    # the perspective the reference builds but never inserts
+    # (enhance_package.py:32-35): opt-in with the plan key use_perspective
+    use_perspective: bool = False
     degrees: float = 10.0           # random_perspective.py:40-66 ranges
     translate: float = 0.1
     pscale: float = 0.1
@@ -147,15 +149,22 @@ class BatchDraw(NamedTuple):
                    torch.from_numpy(_host_flags(mixup_flag)))
 
     def to(self, device) -> "BatchDraw":
-        """The record on ``device``, sent in one copy (``to_device``)."""
-        leaves = _leaves(self)
-        flat = to_device(torch.cat([t.reshape(-1).float() for t in leaves]), device)
-        parts, at = [], 0
-        for t in leaves:
-            part = flat[at:at + t.numel()].reshape(t.shape)
-            parts.append(part > 0.5 if t.dtype == torch.bool else part.to(t.dtype))
-            at += t.numel()
-        return _rebuild(self, iter(parts))
+        """The record on ``device``, sent in one copy (``to_record_device``)."""
+        return to_record_device(self, device)
+
+
+def to_record_device(rec, device):
+    """A record of draws (nested NamedTuples of tensors and None) on
+    ``device``, its tensors sent in one copy (``to_device``) as fp32 and cast
+    back to their dtypes."""
+    leaves = _leaves(rec)
+    flat = to_device(torch.cat([t.reshape(-1).float() for t in leaves]), device)
+    parts, at = [], 0
+    for t in leaves:
+        part = flat[at:at + t.numel()].reshape(t.shape)
+        parts.append(part > 0.5 if t.dtype == torch.bool else part.to(t.dtype))
+        at += t.numel()
+    return _rebuild(rec, iter(parts))
 
 
 def to_device(a, device) -> torch.Tensor:
@@ -208,10 +217,21 @@ def draw_mosaic(gen: torch.Generator, cfg: AugConfig, B: int) -> MosaicDraw:
                       hsv=uniform(gen, (B, 3), -1.0, 1.0))
 
 
+def perspective_cfg(cfg: AugConfig) -> PerspectiveCfg:
+    return PerspectiveCfg(cfg.degrees, cfg.translate, cfg.pscale, cfg.shear, cfg.perspective)
+
+
 def draw_post_enhance(gen: torch.Generator, cfg: AugConfig, B: int) -> EnhanceDraw:
     """``_post_enhance``'s draws: no LR flip (the train path flips LR before
-    the paste), UD flip and equalize with the config's probabilities."""
-    return draw_enhance(gen, B, 0.0, cfg.flip_ud, cfg.equalize)
+    the paste), UD flip and equalize with the config's probabilities, and
+    with ``use_perspective`` the perspective of a size x size sample (drawn
+    only then, so that the other draws of a plan without it stay as they
+    were)."""
+    p = draw_enhance(gen, B, 0.0, cfg.flip_ud, cfg.equalize)
+    if cfg.use_perspective:
+        p = p._replace(perspective=draw_perspective(gen, B, cfg.size, cfg.size,
+                                                    perspective_cfg(cfg)))
+    return p
 
 
 def paste_boxes(T: int, max_boxes: int) -> int:
@@ -335,18 +355,19 @@ def weight_matrix(in_size: int, out_size: int, scale: torch.Tensor,
     return torch.where(inside[:, None, :], weights, 0.0)
 
 
-def warp_canvas(img: torch.Tensor, ky, kx, ty, tx, size: int) -> torch.Tensor:
+def warp_canvas(img: torch.Tensor, ky, kx, ty, tx, size: int, fill: float = GRAY
+                ) -> torch.Tensor:
     """img (N, H, W, 3) float -> (N, size, size, 3):
-    out(y, x) = img((y - ty) / ky, (x - tx) / kx), gray fill outside."""
+    out(y, x) = img((y - ty) / ky, (x - tx) / kx), ``fill`` outside."""
     N, H, W, C = img.shape
     wy = weight_matrix(H, size, ky, ty)                                      # (N, H, S)
     wx = weight_matrix(W, size, kx, tx)                                      # (N, W, S)
     # rows, then columns: one (S, H) x (H, W*C) and one (S*C, W) x (W, S)
     # product an image
-    rows = torch.matmul(wy.transpose(1, 2), (img - GRAY).reshape(N, H, W * C))
+    rows = torch.matmul(wy.transpose(1, 2), (img - fill).reshape(N, H, W * C))
     rows = rows.reshape(N, size, W, C).transpose(2, 3).reshape(N, size * C, W)
     out = torch.matmul(rows, wx).reshape(N, size, C, size)                   # (N, S, C, S)
-    return (out + GRAY).transpose(2, 3).contiguous()
+    return (out + fill).transpose(2, 3).contiguous()
 
 
 def _jitter_geometry(ar, scale, meta, cfg: AugConfig):
@@ -501,10 +522,10 @@ def copy_paste_batch(paste, imgs, boxes, bmasks):
 
 def _post_enhance(p: EnhanceDraw, img, bx, bm, cfg: AugConfig):
     """The enhance.yaml ops on a composed train sample (px xyxy boxes):
-    perspective (not ported yet), UD flip, equalize; each only where the
+    perspective, UD flip, equalize, in that order; each only where the
     config enables it."""
     if cfg.use_perspective:
-        random_perspective()
+        img, bx, bm = random_perspective(p.perspective, img, bx, bm, cfg.perspective)
     if cfg.flip_ud > 0.0:
         img, bx, bm = random_flip(p, img, bx, bm)
     if cfg.equalize > 0.0:

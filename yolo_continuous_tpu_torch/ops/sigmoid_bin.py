@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from ..losses.focal import bce_with_logits
+from ..parallel.mesh import global_count
 
 # The residual spans one step either side of the bin centre (JAX default).
 REG_SCALE = 2.0
@@ -87,6 +88,6 @@ def sigmoid_bin_training_loss(pred: torch.Tensor, target: torch.Tensor, cfg: Sig
         loss = bce.mean() + mse.mean()
     else:
         m = mask.float()
-        denom = torch.clamp(m.sum(), min=1.0)
+        denom = torch.clamp(global_count(m.sum()), min=1.0)   # global under a mesh
         loss = (bce * m[..., None]).sum() / (denom * cfg.bin_count) + (mse * m).sum() / denom
     return loss, torch.clamp(result, cfg.vmin, cfg.vmax)

@@ -29,8 +29,26 @@ master weights (``nn/layers.BodyConv2d``); the head logits and the loss are
 fp32. No autocast: its rounding differs from JAX's. TF32 is off on CUDA, as
 in the ``Detector``.
 
-Not ported yet: ``remat``, ``bn_remat``, ``xla_opts`` and the mesh
-(ROADMAP.md Queue 1 item 19); the perspective augmentation (item 16).
+Memory and parallelism, as JAX ``train_loop.py:50-74, 79-102``:
+
+- ``remat`` (plan key, or the argument): the forward is recomputed in the
+  backward, a row of the model at a time (each under its own checkpoint:
+  one checkpoint over the whole forward would recompute every activation
+  at once at the start of the backward and save no memory). ``True``/"full"
+  recomputes all of it; "conv" saves the outputs of convolutions and
+  matrix products and recomputes the rest (selective checkpointing);
+  "dots" saves the matrix products only. A recomputed forward leaves the
+  BN running statistics alone (``layers.recompute_scope``).
+- ``bn_remat`` (plan key): each BatchNorm and activation tail under its own
+  checkpoint (``YoloModel(bn_remat=True)``); bit-equal numerics.
+- ``mesh`` (``parallel/mesh.make_mesh``): ``train_step`` on this rank's
+  slice of the global batch (``shard_batch``), on a model and state that
+  ``shard_params`` sharded. BatchNorm statistics and the loss's normalizers
+  are taken over the global batch, the gradients summed over "data", and
+  the reported loss parts are the global batch's. ``run`` trains on one
+  device, as JAX's, and refuses a mesh.
+- ``xla_opts`` (XLA compiler options shipped with the TPU compile) has no
+  meaning for CUDA: a plan that sets it is refused.
 """
 from __future__ import annotations
 
@@ -46,10 +64,12 @@ from ..data.dataset import PrefetchLoader, YoloDataset, load_annotation_file
 from ..detect_api import resolve_device
 from ..losses.bin_loss import bin_yolo_loss
 from ..losses.yolo_loss import LossConfig, yolo_loss
+from ..nn import layers as L
 from ..nn.builder import YoloModel, build_model_spec, format_model_info
 from ..ops.augment import (BatchDraw, aug_config_from_plan, augment_batch,
                            augment_batch_from_pool, draw_batch, to_device)
 from ..ops.schedules import LRSchedule
+from ..parallel.mesh import sum_gradients, use_mesh
 from ..tools.jax_weights import state_dict_from_jax
 from .checkpoint import (TRAIN_SUFFIX, jax_weights, load_checkpoint, read_jax_msgpack,
                          save_checkpoint, serving_state_dict, train_checkpoint_path, try_load)
@@ -57,23 +77,46 @@ from .ema import ModelEMA
 from .optimizer import make_optimizer, set_hyper
 
 
+def remat_policy(name):
+    """The ops whose outputs a ``remat`` policy saves (the rest is recomputed
+    in the backward), as JAX's named policies: ``True``/"full" saves nothing
+    (None: the whole forward is checkpointed); "conv" the convolutions and
+    matrix products; "dots" the matrix products."""
+    aten = torch.ops.aten
+    dots = [aten.mm.default, aten.bmm.default, aten.addmm.default]
+    if name is True or name == "full":
+        return None
+    if name == "conv":
+        return [aten.convolution.default] + dots
+    if name == "dots":
+        return dots
+    raise ValueError(f"unknown remat policy {name!r} (use True/'full', 'conv' or 'dots')")
+
+
 class Trainer:
     """Builds the model, loss and optimizer of a TrainPlan and steps them.
 
     Runs on ``cuda`` by default and raises without a CUDA device; pass
-    ``device="cpu"`` for the CPU (the tests do)."""
+    ``device="cpu"`` for the CPU (the tests do). With ``mesh``, on the
+    mesh's device. ``remat`` overrides the plan key."""
 
-    def __init__(self, plan: TrainPlan, device="cuda", dtype: Optional[torch.dtype] = None):
-        self.device = resolve_device(device)
+    def __init__(self, plan: TrainPlan, device="cuda", dtype: Optional[torch.dtype] = None,
+                 mesh=None, remat=None):
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.mesh = mesh
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.plan = plan
+        self.remat = plan.cfg.get("remat", False) if remat is None else remat
+        self.bn_remat = bool(plan.cfg.get("bn_remat", False))
         self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda" else torch.float32)
         self.spec = build_model_spec(cvt_cfg(plan.model_cfg), plan.image_chan, plan.anchors,
                                      plan.num_labels, plan.anchors_mask)
-        self.model = YoloModel(self.spec).to(self.device).set_dtype(self.dtype,
-                                                                    cast_weights=False)
+        self.model = YoloModel(self.spec, bn_remat=self.bn_remat).to(self.device).set_dtype(
+            self.dtype, cast_weights=False)
+        if self.remat:
+            self.model.remat_ctx = L.remat_context_fn(remat_policy(self.remat), self.bn_remat)
         self.nl = len(self.spec.strides)
         self.loss_cfg = LossConfig(
             num_classes=plan.num_labels,
@@ -87,13 +130,14 @@ class Trainer:
             threshold=plan.anchor_t,
         )
         self.aug_cfg = aug_config_from_plan(plan)
-        if self.aug_cfg.use_perspective:
-            raise NotImplementedError("the perspective augmentation (plan key use_perspective) "
-                                      "is not ported yet (ROADMAP.md Queue 1 item 16)")
         if plan.cfg.get("host_sync_every"):
             raise NotImplementedError(
                 "host_sync_every is not ported: on CUDA the launch queue bounds the work in "
                 "flight (ROADMAP.md, deliberate differences)")
+        if plan.cfg.get("xla_opts"):
+            raise NotImplementedError(
+                "xla_opts is not ported: XLA compiler options have no meaning for CUDA "
+                "(ROADMAP.md, deliberate differences)")
         # one record per epoch of the last run(): loss, lr, img/s, step,
         # augment and data-wait times (see run)
         self.epoch_stats: List[Dict[str, Any]] = []
@@ -153,14 +197,29 @@ class Trainer:
         x, labels, lmask = self._inputs(images, labels, lmask)
         model, opt = state["model"], state["opt"]
         model.train()
-        loss, parts = self.loss_from_outputs(model(x), labels, lmask)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with use_mesh(self.mesh):     # the backward too: a recomputed forward reduces
+            loss, parts = self.loss_from_outputs(model(x), labels, lmask)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        if self.mesh is not None:
+            sum_gradients(model, self.mesh)
+            loss, parts = self._global_parts(loss, parts)
         set_hyper(opt, lr_w, lr_b, mom)
         opt.step()
         state["ema"].update(model)
         state["step"] += 1
         return state, {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+
+    @torch.no_grad()
+    def _global_parts(self, loss, parts):
+        """The loss and its parts of the global batch: the ranks'
+        contributions summed over "data", in one collective."""
+        import torch.distributed as dist
+        vals = [loss] + list(parts.values())
+        flat = torch.stack([v.detach().float() for v in vals])
+        dist.all_reduce(flat, group=self.mesh.data_group)
+        out = [f.to(v.dtype) for f, v in zip(flat, vals)]
+        return out[0], dict(zip(parts, out[1:]))
 
     @torch.no_grad()
     def eval_loss(self, state, images, labels, lmask) -> torch.Tensor:
@@ -204,6 +263,8 @@ class Trainer:
         ``data_wait_ms_steps`` each step's), and on CUDA ``augment_ms`` and
         ``train_step_ms`` (CUDA events a step) and ``max_memory_allocated``."""
         plan = self.plan
+        if self.mesh is not None:
+            raise ValueError("Trainer.run trains on one device; a mesh serves train_step")
         cuda = self.device.type == "cuda"
         train_ds = YoloDataset(
             load_annotation_file(plan.train_indexes), plan.image_size,

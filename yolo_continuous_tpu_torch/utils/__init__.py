@@ -1,1 +1,1 @@
-"""utils (PyTorch port)."""
+"""utils (PyTorch port): ``timing.py``, ``image.py``, ``env.py``."""
