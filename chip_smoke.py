@@ -8,7 +8,8 @@ It imports only ``torch``, numpy and the port package
 failure exits non-zero before the result line.
 
 1. build: compiles the port's CUDA kernels (``csrc/*.cu``, one ``nvcc``
-   each, in parallel) and prints the seconds and the ptxas report.
+   each, in parallel: K1-K5 and the stager) and prints the seconds and the
+   ptxas report.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the main paths: K3 decode on the three yolov7 @640 levels
    at batch 16, in its TMA form (one launch for all levels), held bit-equal
@@ -52,7 +53,10 @@ failure exits non-zero before the result line.
    (profiler), host enqueue ms a step, the loss parts and ``num_fg``, and
    fails unless every loss is finite, ``num_fg > 0``, the parameters and
    the EMA moved and a checkpoint saved on the card loads back bit-equal.
-   Then one step of yolov7-tiny @128, batch 2, fp32, on the card and on the
+   It also times the step with ``cudnn.deterministic`` (the Trainer's
+   setting on CUDA, for exact resume) and without it, in 10 alternating
+   turns: device time (the profiler's sum of the step's kernels), which
+   decides its cost, and host wall time. Then one step of yolov7-tiny @128, batch 2, fp32, on the card and on the
    CPU from the same weights: loss parts, ``num_fg``, gradients and updated
    parameters must agree within the CPU parity tests' tolerances
    (``tests/test_torch_port_train.py``).
@@ -63,7 +67,8 @@ failure exits non-zero before the result line.
    ``mixup_prob`` 0.5 (the stock enhance YAML never mosaics), UD flips from
    the enhance YAML, ``val_map_every: 1``: 2 epochs with ``device_cache``
    on, then the plan extended to 3 epochs and resumed from ``.last`` with
-   it off (the prefetch thread staging with cv2). It prints each epoch's
+   it off (the prefetch thread staging through the card's stager, as the
+   pool was staged). It prints each epoch's
    line and a JSON record (step ms, augment and train-step ms a step by
    CUDA events, the host's data-wait ms of every step, img/s, peak memory,
    mAP), and fails unless every loss is finite, the checkpoints
@@ -154,6 +159,30 @@ failure exits non-zero before the result line.
    ``Detector`` on the ``.train.pt`` bit for bit. Prints a
    ``parallel_and_tools`` JSON line; ``--only parallel_and_tools`` runs
    this phase alone (no result line).
+10. native_staging: the JPEG stager (``kernels/staging.py``: cv2 decode in
+   a pool of threads, then ``csrc/staging.cu::stage_letterbox``, one launch
+   a batch). ``stage_letterbox`` against its plain version on the same
+   decoded pixels at S = 640, on the CPU and on the card, bit-equal, for
+   640 x 480, 480 x 640, 1280 x 720, 1920 x 1080, 333 x 517, 133 x 65 (the
+   fp32 width case), 1 x 1 and a grayscale JPEG; ``stage_batch_native`` on
+   the card against the CPU's, tiles, metas and ``ok`` bit-equal. The
+   stager alone on a mosaic batch of 64 photo-like JPEGs of 640 x 480:
+   read, decode, kernel (device time beside its byte bound) and host ms,
+   images/s, against cv2's ``stage_image`` on the same files in 5
+   alternating pairs; the kernel bit-equal to its plain version on that
+   batch, and on the pixels and geometry table that ``YoloDataset`` hands
+   it for one training batch of those files (16 samples x 4 tile slots,
+   mosaic 0.5, so with the fill rows of unused slots). Then ``Trainer.run`` of yolov7 @640 bs16 for one
+   epoch without the pool (phase 6's plan keys, ``device_cache: false``) on
+   256 + 32 JPEGs the phase writes (640 x 480 and 480 x 640 with a few 1280
+   x 720, luma grain) plus a grayscale JPEG and a PNG named ``.jpg``, which
+   must take the cv2 fallback: counters at 0 around the run, which must
+   launch ``stage_letterbox``, K3 and K1; each step's data wait, step and
+   epoch time. Then the train loader's staging of one epoch through the
+   stager and through cv2 (``use_native=False``), in 3 alternating pairs,
+   and ``staged_pool`` of the train set each way, in 2. Prints a
+   ``native_staging`` JSON line; ``--only native_staging`` runs this phase
+   alone (no result line).
 
 Kernel times are device times: ``cuda_ms`` holds the stream with a sleep
 kernel while the host enqueues the timed calls, so that a kernel shorter
@@ -164,8 +193,10 @@ error of each kernel; ``launches`` on phase 4's main paths,
 ``launches_validate_map`` on phase 6's ``validate_map`` calls,
 ``launches_model_zoo`` on phase 7's counted requests and ``launches_serve``
 on phase 8's serving window, ``launches_parallel`` on phase 9's counted
-calls; K3's 4-level time and
-bound at the P6 shape) and the card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
+calls, ``launches_native_staging`` on phase 10's run; K3's 4-level time and
+bound at the P6 shape; a sixth entry, ``stage_letterbox``, whose
+``launches`` are phase 10's run's, its main path) and the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 import copy
 import json
@@ -805,8 +836,9 @@ def counters():
     from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda
     from yolo_continuous_tpu_torch.kernels.fused_conv import fused_pointwise_conv_cuda
     from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
+    from yolo_continuous_tpu_torch.kernels.staging import stage_letterbox
     return (decode_outputs_cuda, nms_suppress, nms_suppress_tiled, decode_outputs_bin_cuda,
-            fused_pointwise_conv_cuda)
+            fused_pointwise_conv_cuda, stage_letterbox)
 
 
 def drive_path(label, det, images, max_dets):
@@ -997,6 +1029,42 @@ def flat_state(state) -> dict:
     return out
 
 
+def deterministic_cost(step, turns: int = 10) -> dict:
+    """The train step with cuDNN's deterministic algorithms (the Trainer's
+    setting on CUDA, for exact resume, global to the process) and with its
+    default ones, in ``turns`` alternating turns after a warm step of each:
+    each turn one step timed on the host's clock, then one under
+    torch.profiler for its device time (the sum of its kernels' times). The
+    cost is read from the device time, since the host paces the step and its
+    wall time hides what the algorithms cost on the card. The setting is
+    left on."""
+    import torch
+    wall = {True: [], False: []}
+    device = {True: [], False: []}
+    for flag in (False, True):
+        torch.backends.cudnn.deterministic = flag
+        step()
+    torch.cuda.synchronize()
+    for turn in range(turns):
+        for flag in ((False, True) if turn % 2 == 0 else (True, False)):
+            torch.backends.cudnn.deterministic = flag
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall[flag].append((time.perf_counter() - t0) * 1e3)
+            prof = profile_window(step, calls=1, grad=True)
+            device[flag].append(prof["device_ms"])
+    torch.backends.cudnn.deterministic = True
+    if not all(isinstance(v, float) for v in device[True] + device[False]):
+        fail(f"cudnn.deterministic: the profiler saw no device time: {device}")
+    on, off = float(np.median(device[True])), float(np.median(device[False]))
+    won, woff = float(np.median(wall[True])), float(np.median(wall[False]))
+    return dict(on_device_ms_median=on, off_device_ms_median=off, device_cost=on / off - 1.0,
+                on_wall_ms_median=won, off_wall_ms_median=woff, wall_cost=won / woff - 1.0,
+                on_device_ms=device[True], off_device_ms=device[False], on_wall_ms=wall[True],
+                off_wall_ms=wall[False], turns=turns)
+
+
 def phase_train():
     """The train step of yolov7 @640, batch 16, at full width on the card."""
     import torch
@@ -1028,6 +1096,7 @@ def phase_train():
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
+    det_ms = deterministic_cost(step)
     parts = [{k: float(v) for k, v in p.items()} for p in parts]
     for i, p in enumerate(parts):
         if not all(np.isfinite(v) for v in p.values()):
@@ -1060,7 +1129,8 @@ def phase_train():
         step_ms_median=float(np.median(step_ms)), step_ms_min=min(step_ms),
         step_ms_max=max(step_ms), img_s=BS / float(np.median(step_ms)) * 1e3,
         host_enqueue_ms_median=float(np.median(host_ms)), host_enqueue_ms=host_ms,
-        max_memory_allocated_gb=peak / 2 ** 30, first=parts[0], last=parts[-1],
+        max_memory_allocated_gb=peak / 2 ** 30, cudnn_deterministic=det_ms,
+        first=parts[0], last=parts[-1],
         num_fg=parts[-1]["num_fg"], moved=moved, checkpoint="bit-equal after load",
         launches_per_step=prof.get("launches_per_call"), profile=prof)}), flush=True)
     del trainer, state
@@ -1119,26 +1189,35 @@ def phase_train_reference():
         rel_l2=errs, loss_rtol=STEP_LOSS_RTOL, rel_l2_tol=STEP_REL_L2)}), flush=True)
 
 
-def write_jpeg_dataset(root: str, n: int, rs, prefix: str) -> str:
-    """``n`` JPEGs of mixed aspect ratios under ``root``, each a smooth
-    background with 1-8 filled boxes of 80 classes, and their annotation
-    file; returns its path."""
+def photo_like(rs, w: int, h: int, grain: int = 0):
+    """A smooth background with flat boxes of 80 classes' colours, and
+    ``grain`` levels of noise of luma; returns (image, box strings)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = rs.randint(40, 200, 3)
+    img = np.clip(base + 40 * np.sin(xx / rs.uniform(20, 80))[..., None]
+                  + 30 * np.cos(yy / rs.uniform(20, 80))[..., None], 0, 255).astype(np.uint8)
+    boxes = []
+    for _ in range(rs.randint(1, 9)):
+        bw, bh = rs.randint(w // 12, w // 3), rs.randint(h // 12, h // 3)
+        x, y = rs.randint(0, w - bw), rs.randint(0, h - bh)
+        cls = rs.randint(80)
+        img[y:y + bh, x:x + bw] = ((cls * 37) % 256, (cls * 91) % 256, (cls * 53) % 256)
+        boxes.append(f"{x},{y},{x + bw},{y + bh},{cls}")
+    if grain:
+        img = np.clip(img + rs.randint(-grain, grain + 1, (h, w, 1)), 0, 255).astype(np.uint8)
+    return img, boxes
+
+
+def write_jpeg_dataset(root: str, n: int, rs, prefix: str,
+                       shapes=((480, 640), (640, 480), (512, 512), (360, 640), (640, 427)),
+                       grain: int = 0) -> str:
+    """``n`` JPEGs of ``shapes`` (h, w; cycled) under ``root``, each
+    ``photo_like``, and their annotation file; returns its path."""
     import cv2
-    shapes = ((480, 640), (640, 480), (512, 512), (360, 640), (640, 427))
     lines = []
     for i in range(n):
         h, w = shapes[i % len(shapes)]
-        yy, xx = np.mgrid[0:h, 0:w]
-        base = rs.randint(40, 200, 3)
-        img = np.clip(base + 40 * np.sin(xx / rs.uniform(20, 80))[..., None]
-                      + 30 * np.cos(yy / rs.uniform(20, 80))[..., None], 0, 255).astype(np.uint8)
-        boxes = []
-        for _ in range(rs.randint(1, 9)):
-            bw, bh = rs.randint(w // 12, w // 3), rs.randint(h // 12, h // 3)
-            x, y = rs.randint(0, w - bw), rs.randint(0, h - bh)
-            cls = rs.randint(80)
-            img[y:y + bh, x:x + bw] = ((cls * 37) % 256, (cls * 91) % 256, (cls * 53) % 256)
-            boxes.append(f"{x},{y},{x + bw},{y + bh},{cls}")
+        img, boxes = photo_like(rs, w, h, grain)
         path = os.path.join(root, f"{prefix}{i:03d}.jpg")
         cv2.imwrite(path, img)
         lines.append(" ".join([path] + boxes) + "\n")
@@ -2210,7 +2289,7 @@ def phase_serve():
         batches = sum(after[n]["batches"] - before[n]["batches"] for n in after)
         want = {"decode_outputs_cuda": batches, "nms_suppress": batches,
                 "nms_suppress_tiled": 0, "decode_outputs_bin_cuda": 0,
-                "fused_pointwise_conv_cuda": 0}
+                "fused_pointwise_conv_cuda": 0, "stage_letterbox": 0}
         if launches != want:
             fail(f"serve: launches {launches} over {batches} batches, expected {want} "
                  "(K3 in its TMA form and K1 once a batch)")
@@ -2630,10 +2709,303 @@ def phase_parallel_and_tools():
     return total
 
 
+# ---------------------------------------------------------------- phase 10
+
+# (w, h) of the stager's check at S = 640: landscape and portrait photos,
+# 720p, 1080p, an odd size, JAX's fp32 width case (nw = 639) and 1 x 1
+STAGER_SIZES = ((640, 480), (480, 640), (1280, 720), (1920, 1080), (333, 517), (133, 65), (1, 1))
+GRAIN = 8                   # levels of luma noise in the phase's photo-like JPEGs
+
+
+def stager_files(root: str, rs) -> list:
+    """One photo-like JPEG of each of STAGER_SIZES and a grayscale one."""
+    import cv2
+    paths = []
+    for w, h in STAGER_SIZES:
+        paths.append(os.path.join(root, f"size_{w}x{h}.jpg"))
+        cv2.imwrite(paths[-1], photo_like(rs, w, h, GRAIN)[0] if w > 12 else
+                    rs.randint(0, 255, (h, w, 3)).astype(np.uint8))
+    paths.append(os.path.join(root, "gray_640x480.jpg"))
+    cv2.imwrite(paths[-1], cv2.cvtColor(photo_like(rs, 640, 480, GRAIN)[0], cv2.COLOR_RGB2GRAY))
+    return paths
+
+
+def stager_against_plain(paths) -> dict:
+    """``stage_letterbox`` against its plain version on the same decoded
+    pixels (on the CPU, copied down, and on the card), bit-equal at S = 640;
+    then ``stage_batch_native`` end to end, the card's against the CPU's
+    (one decode, so tiles, metas and ``ok`` bit-equal)."""
+    import torch
+    from yolo_continuous_tpu_torch.data.native_loader import stage_batch_native
+    from yolo_continuous_tpu_torch.kernels import staging
+    dec = staging.decode(staging.read_files(paths), "cuda")
+    if not dec.ok.all():
+        fail(f"native_staging: the decode refused {[p for p, ok in zip(paths, dec.ok) if not ok]}")
+    geo = torch.tensor([staging.canvas_row(dec, i, SIZE, 128)[0] for i in range(len(paths))])
+    got = staging.stage_letterbox(dec.src, geo.cuda(), SIZE).cpu()
+    on_cpu = staging.stage_letterbox_plain(dec.src.cpu(), geo, SIZE)
+    on_card = staging.stage_letterbox_plain(dec.src, geo, SIZE).cpu()
+    err = int((got.int() - on_cpu.int()).abs().max())
+    if not (torch.equal(got, on_cpu) and torch.equal(got, on_card)):
+        fail(f"native_staging: stage_letterbox differs from its plain version by {err}")
+    card, cpu = stage_batch_native(paths, SIZE, 128, "cuda"), stage_batch_native(paths, SIZE, 128,
+                                                                                 "cpu")
+    end_to_end = int((torch.as_tensor(card[0]).cpu().int()
+                      - torch.from_numpy(cpu[0]).int()).abs().max())
+    if end_to_end or not (np.array_equal(card[1], cpu[1]) and np.array_equal(card[2], cpu[2])):
+        fail(f"native_staging: the card's stage_batch_native differs from the CPU's: tiles by "
+             f"{end_to_end}, metas {card[1]} against {cpu[1]}")
+    return dict(files=[os.path.basename(p) for p in paths], bit_equal=True, max_abs_err=err,
+                end_to_end_max_abs_err=end_to_end, metas_equal=True)
+
+
+def batch_geometry(paths) -> tuple:
+    """The decoded pixels and geometry table that ``YoloDataset`` hands
+    ``stage_letterbox`` for one training batch of ``paths``: BS samples x 4
+    tile slots at mosaic 0.5, so the unused slots of the samples that do not
+    take a mosaic are rows of fill 0."""
+    import types
+    from yolo_continuous_tpu_torch.data import native_loader
+    from yolo_continuous_tpu_torch.data.dataset import Annotation, YoloDataset
+    from yolo_continuous_tpu_torch.kernels import staging
+    ds = YoloDataset([Annotation(p, np.zeros((0, 5), np.float32)) for p in paths], SIZE, 64,
+                     mosaic_prob=0.5, device="cuda")
+    ds.reseed(0)
+    seen = []
+
+    def capture(src, geo, size, out=None):
+        seen.append((src, geo.clone()))
+        return staging.stage_letterbox(src, geo, size, out)
+
+    # the stager as native_loader sees it, with the kernel's wrapper behind capture
+    native_loader.staging = types.SimpleNamespace(**{**vars(staging), "stage_letterbox": capture})
+    try:
+        tiles = ds.batch(list(range(BS)))[0]
+    finally:
+        native_loader.staging = staging
+    (src, geo), = seen
+    fill_rows = int((geo[:, 3] == 0).sum())
+    if tuple(tiles.shape[:2]) != (BS, 4) or not 0 < fill_rows < geo.shape[0]:
+        fail(f"native_staging: the training batch staged {tuple(tiles.shape)} with "
+             f"{fill_rows} fill rows of {geo.shape[0]}")
+    return src, geo, fill_rows
+
+
+def stager_alone(paths) -> dict:
+    """A mosaic batch of 64 JPEGs of 640 x 480 through the card's stager:
+    decode, kernel (device time beside its byte bound), host and images/s,
+    against cv2's ``stage_image`` on the same files in alternating turns.
+    The kernel is held bit-equal to its plain version on that batch and on
+    a training batch of the same files (``batch_geometry``)."""
+    import torch
+    from yolo_continuous_tpu_torch.data.dataset import _read_rgb
+    from yolo_continuous_tpu_torch.data.native_loader import stage_batch_native
+    from yolo_continuous_tpu_torch.kernels import staging
+    from yolo_continuous_tpu_torch.ops.preprocess import stage_image
+    n = len(paths)
+    for _ in range(2):                                      # the decoder's buffers grow once
+        stage_batch_native(paths, SIZE, 128, "cuda")
+    torch.cuda.synchronize()
+    read_ms, decode_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        data = staging.read_files(paths)
+        t1 = time.perf_counter()
+        dec = staging.decode(data, "cuda")
+        torch.cuda.synchronize()
+        read_ms.append((t1 - t0) * 1e3)
+        decode_ms.append((time.perf_counter() - t1) * 1e3)
+    geo = torch.tensor([staging.canvas_row(dec, i, SIZE, 128)[0] for i in range(n)]).cuda()
+    out = torch.empty((n, SIZE, SIZE, 3), dtype=torch.uint8, device=dec.src.device)
+    plain_out = torch.empty_like(out)
+    kernel_ms = cuda_ms(lambda: staging.stage_letterbox(dec.src, geo, SIZE, out))
+    plain_ms = cuda_ms(lambda: staging.stage_letterbox_plain(dec.src, geo, SIZE, plain_out),
+                       iters=2, warmup=1, hold=False)
+    if not torch.equal(out, plain_out):
+        fail(f"native_staging: stage_letterbox differs from its plain version on the batch of "
+             f"{n} by {int((out.int() - plain_out.int()).abs().max())}")
+    src, bgeo, fill_rows = batch_geometry(paths)
+    got = staging.stage_letterbox(src, bgeo, SIZE)
+    want = staging.stage_letterbox_plain(src, bgeo, SIZE)
+    if not torch.equal(got, want):
+        fail(f"native_staging: stage_letterbox differs from its plain version on a training "
+             f"batch ({fill_rows} fill rows) by {int((got.int() - want.int()).abs().max())}")
+    batch_ms = cuda_ms(lambda: staging.stage_letterbox(src, bgeo, SIZE, got))
+    decoded = int((dec.dims[:, 0] * dec.dims[:, 1]).sum()) * 3
+    moved = decoded + n * SIZE * SIZE * 3 + geo.numel() * 8
+    images = {tuple(r[:3]) for r in bgeo[bgeo[:, 3] > 0].tolist()}     # each file once
+    batch_moved = (sum(iw * ih * 3 for _, iw, ih in images) + bgeo.shape[0] * SIZE * SIZE * 3
+                   + bgeo.numel() * 8)
+    turns = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        stage_batch_native(paths, SIZE, 128, "cuda")
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for p in paths:
+            stage_image(_read_rgb(p), SIZE)
+        turns.append(dict(native_host_ms=host * 1e3, native_ms=native * 1e3,
+                          cv2_ms=(time.perf_counter() - t0) * 1e3))
+    med = {k: float(np.median([t[k] for t in turns])) for k in turns[0]}
+    return dict(images=n, size="640x480", read_ms=float(np.median(read_ms)),
+                decode_ms=float(np.median(decode_ms)), kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=moved / HBM_BYTES_S * 1e3, bytes_moved=moved, bit_equal=True,
+                training_batch=dict(canvases=int(bgeo.shape[0]), fill_rows=fill_rows,
+                                    kernel_ms=batch_ms, bound_ms=batch_moved / HBM_BYTES_S * 1e3,
+                                    bit_equal=True),
+                host_ms=med["native_host_ms"], native_ms=med["native_ms"], cv2_ms=med["cv2_ms"],
+                native_img_s=n / med["native_ms"] * 1e3, cv2_img_s=n / med["cv2_ms"] * 1e3,
+                turns=turns)
+
+
+def odd_files(root: str, rs, ann: str) -> None:
+    """A grayscale JPEG and a PNG named ``.jpg`` (the stager refuses it, as
+    libjpeg does; the dataset stages it with cv2) appended to the annotation
+    file ``ann``."""
+    import cv2
+    img, boxes = photo_like(rs, 640, 480, GRAIN)
+    gray = os.path.join(root, "odd_gray.jpg")
+    cv2.imwrite(gray, cv2.cvtColor(img, cv2.COLOR_RGB2GRAY))
+    png = os.path.join(root, "odd_png.jpg")
+    cv2.imwrite(os.path.join(root, "odd.png"), img)
+    os.replace(os.path.join(root, "odd.png"), png)
+    with open(ann, "a") as f:
+        f.write(" ".join([gray] + boxes) + "\n" + " ".join([png] + boxes) + "\n")
+
+
+def data_layer_turns(trainer, ann: str, pairs: int = 3) -> dict:
+    """One epoch of the train loader's staging (``Trainer._staged_batches``,
+    as the prefetch thread runs it) through the card's stager and through cv2
+    (``use_native=False``), in alternating turns: seconds an epoch."""
+    import torch
+    from yolo_continuous_tpu_torch.data.dataset import YoloDataset, load_annotation_file
+    plan = trainer.plan
+    out = {"native": [], "cv2": []}
+    for _ in range(pairs):
+        for name in ("native", "cv2"):
+            ds = YoloDataset(load_annotation_file(ann), plan.image_size, plan.max_boxes,
+                             plan.mosaic, plan.mixup, plan.mosaic_prob, plan.mixup_prob,
+                             plan.epochs, plan.special_aug_ratio, seed=plan.seed,
+                             use_native=name == "native", device="cuda")
+            ds.reseed(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batches = sum(1 for _ in trainer._staged_batches(ds))
+            torch.cuda.synchronize()
+            out[name].append(time.perf_counter() - t0)
+    return dict(batches=batches, native_s=out["native"], cv2_s=out["cv2"],
+                native_s_median=float(np.median(out["native"])),
+                cv2_s_median=float(np.median(out["cv2"])))
+
+
+def pool_turns(ann: str, pairs: int = 2) -> dict:
+    """``staged_pool`` of the dataset through the card's stager and through
+    cv2, in alternating turns: seconds."""
+    import torch
+    from yolo_continuous_tpu_torch.data.dataset import YoloDataset, load_annotation_file
+    out = {"native": [], "cv2": []}
+    for _ in range(pairs):
+        for name in ("native", "cv2"):
+            ds = YoloDataset(load_annotation_file(ann), SIZE, 64, use_native=name == "native",
+                             device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pool = ds.staged_pool()
+            torch.cuda.synchronize()
+            out[name].append(time.perf_counter() - t0)
+    return dict(images=int(pool[0].shape[0]), native_s=out["native"], cv2_s=out["cv2"])
+
+
+def phase_native_staging():
+    """Phase 10: the native JPEG stager, and ``Trainer.run`` through it
+    without the device pool. Returns (launches of the run, the stager's row
+    for the kernels line)."""
+    import shutil
+    import cv2
+    import torch
+    from yolo_continuous_tpu_torch.config.plan import TrainPlan
+    from yolo_continuous_tpu_torch.data import dataset as pds
+    from yolo_continuous_tpu_torch.train.train_loop import Trainer
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "runs", "chip_smoke_native")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rs = np.random.RandomState(10)
+    rec = {"against_plain": stager_against_plain(stager_files(root, rs))}
+    mosaic_files = []
+    for i in range(64):
+        mosaic_files.append(os.path.join(root, f"mosaic{i:02d}.jpg"))
+        cv2.imwrite(mosaic_files[-1], photo_like(rs, 640, 480, GRAIN)[0])
+    rec["stager_alone"] = alone = stager_alone(mosaic_files)
+
+    shapes = ((480, 640), (640, 480)) * 15 + ((720, 1280),) * 2
+    train_ann = write_jpeg_dataset(root, 256, rs, "train", shapes, GRAIN)
+    odd_files(root, rs, train_ann)
+    val_ann = write_jpeg_dataset(root, 32, rs, "val", shapes, GRAIN)
+    plan_path = plan_copy(root, "plan.yaml", train=train_ann, val=val_ann, batch_size=BS,
+                          image_size=SIZE, mosaic_prob=0.5, mixup_prob=0.5, val_map_every=1,
+                          save_dir=root + "/", save_name="native", seed=0, epochs=1,
+                          resume="False", device_cache="False")
+    trainer = Trainer(TrainPlan(plan_path), device="cuda")
+    fallbacks = []
+    staged = pds.YoloDataset._staged
+
+    def counted_fallback(ds, idx):
+        fallbacks.append(os.path.basename(ds.annotations[idx].path))
+        return staged(ds, idx)
+
+    pds.YoloDataset._staged = counted_fallback
+    torch.cuda.synchronize()
+    for fn in counters():
+        fn.launches = 0
+    try:
+        logs = []
+        state = trainer.run(log=lambda line: (logs.append(line), print(line, flush=True)))
+        torch.cuda.synchronize()
+    finally:
+        pds.YoloDataset._staged = staged
+    launches = {fn.__name__: fn.launches for fn in counters()}
+    (st,) = trainer.epoch_stats
+    if st["device_cache"] or state["step"] != 258 // BS or not np.isfinite(st["loss"]):
+        fail(f"native_staging: the epoch without the pool ran {state['step']} steps, "
+             f"loss {st['loss']}, device_cache {st['device_cache']}")
+    for name in ("stage_letterbox", "decode_outputs_cuda", "nms_suppress"):
+        if launches[name] == 0:
+            fail(f"native_staging: Trainer.run never launched {name}: {launches}")
+    m = st["map"]
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()):
+        fail(f"native_staging: mAP out of [0, 1]: {m}")
+    if "odd_png.jpg" not in fallbacks:
+        fail(f"native_staging: the PNG named .jpg was not staged by cv2: {fallbacks}")
+    rec["train_run"] = dict(
+        config="cfg/coco_train.yaml yolov7 640px bf16 body, batch 16, mosaic_prob 0.5, "
+               "mixup_prob 0.5, device_cache false, 258 train + 32 val JPEGs",
+        launches=launches, cv2_fallbacks=len(fallbacks), fallback_files=sorted(set(fallbacks)),
+        **{k: st[k] for k in ("loss", "steps", "seconds", "step_ms", "augment_ms",
+                              "train_step_ms", "data_wait_ms", "data_wait_ms_steps", "img_s",
+                              "max_memory_allocated")},
+        data_wait_ms_first=st["data_wait_ms_steps"][0],
+        data_wait_ms_later=float(np.mean(st["data_wait_ms_steps"][1:])), map=m)
+    rec["data_layer"] = data_layer_turns(trainer, train_ann)
+    rec["staged_pool"] = pool_turns(train_ann)
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    rec.update(phase_s=time.perf_counter() - t_phase, card=smi.stdout.strip())
+    print(json.dumps({"native_staging": rec}), flush=True)
+    row = dict(max_abs_err=float(rec["against_plain"]["max_abs_err"]), ms=alone["kernel_ms"],
+               plain_ms=alone["plain_ms"], bound_ms=alone["bound_ms"], bound_by="bytes",
+               library_ms=None, decode_ms=alone["decode_ms"])
+    del trainer, state
+    torch.cuda.empty_cache()
+    return launches, row
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port")
-    ap.add_argument("--only", choices=["serve", "parallel_and_tools"],
+    ap.add_argument("--only", choices=["serve", "parallel_and_tools", "native_staging"],
                     help="build the kernels and run this phase alone (a debugging aid: "
                          "it prints no result line)")
     ap.add_argument("--serve-clients", nargs=2, metavar=("PORT", "JPEGS"),
@@ -2662,7 +3034,8 @@ def main() -> None:
             if "registers" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     if args.only:
-        {"serve": phase_serve, "parallel_and_tools": phase_parallel_and_tools}[args.only]()
+        {"serve": phase_serve, "parallel_and_tools": phase_parallel_and_tools,
+         "native_staging": phase_native_staging}[args.only]()
         print(f"chip_smoke: --only {args.only} passed (no result line)", flush=True)
         return
 
@@ -2683,6 +3056,7 @@ def main() -> None:
     launches_model_zoo, k3_p6 = phase_model_zoo()
     launches_serve = phase_serve()
     launches_parallel = phase_parallel_and_tools()
+    launches_native, stager = phase_native_staging()
 
     meta = {
         "decode_level": ("csrc/decode.cu", "yolo_continuous_tpu/kernels/decode_pallas.py:67",
@@ -2715,9 +3089,24 @@ def main() -> None:
                             launches_model_zoo=launches_model_zoo[counter],
                             launches_serve=launches_serve[counter],
                             launches_parallel=launches_parallel[counter],
+                            launches_native_staging=launches_native[counter],
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], **other))
+    # the stager replaces a host library, not a TPU kernel; its main path is
+    # phase 10's Trainer.run without the pool
+    counter = "stage_letterbox"
+    kernels.append(dict(name="stage_letterbox", route="cuda",
+                        source="yolo_continuous_tpu_torch/csrc/staging.cu",
+                        replaces="native/staging.cpp:70 through "
+                                 "yolo_continuous_tpu/data/native_loader.py:62",
+                        launches=launches_native[counter],
+                        launches_main_paths=launches[counter],
+                        launches_validate_map=launches_validate_map[counter],
+                        launches_model_zoo=launches_model_zoo[counter],
+                        launches_serve=launches_serve[counter],
+                        launches_parallel=launches_parallel[counter],
+                        launches_native_staging=launches_native[counter], **stager))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -417,3 +417,51 @@ def dist_batch(global_bs: int, size: int = 64, max_gt: int = 8):
     lmask[:, 0] = True
     lmask[::2, 1] = True
     return images, labels, lmask
+
+
+# (width, height) of the stager's test JPEGs: down- and up-scales at 64-128
+# px, JAX's fp32 width case (133 x 65 at 640 gives nw = 639), 1 x 1
+STAGING_SIZES = ((200, 100), (100, 200), (48, 64), (64, 48), (133, 65), (1, 1), (37, 91),
+                 (128, 128))
+
+
+def write_staging_files(root, seed: int = 0, sizes=STAGING_SIZES):
+    """JPEGs of ``sizes`` (smooth content with noise and a flat patch), a
+    grayscale JPEG, a PNG named ``.jpg`` (which libjpeg refuses) and the path
+    of a missing file, under ``root`` (a pathlib.Path). Returns the paths."""
+    import cv2
+    rs = np.random.RandomState(seed)
+    paths = []
+    for k, (w, h) in enumerate(sizes):
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = (rs.randint(40, 200, 3) + 40 * np.sin(xx / 7.0)[..., None]
+               + 30 * np.cos(yy / 5.0)[..., None] + rs.randint(0, 30, (h, w, 3)))
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        img[h // 4: h // 2, w // 4: w // 2] = rs.randint(0, 255, 3)
+        paths.append(str(root / f"s{k}.jpg"))
+        cv2.imwrite(paths[-1], img)
+    gray = rs.randint(0, 255, (50, 70), np.uint8)
+    paths.append(str(root / "gray.jpg"))
+    cv2.imwrite(paths[-1], gray)
+    cv2.imwrite(str(root / "png.png"), gray)
+    (root / "png.png").rename(root / "png.jpg")
+    paths += [str(root / "png.jpg"), str(root / "missing.jpg")]
+    return paths
+
+
+def jax_native_loader():
+    """JAX's ``data/native_loader`` module with its C++ library built, or
+    None where it does not build here. The build (``make -C native``) runs
+    under a lock on the Makefile, so workers of one test run do not build it
+    at once."""
+    import fcntl
+    import os
+    from yolo_continuous_tpu.data import native_loader
+    makefile = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "native", "Makefile")
+    with open(makefile) as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            return native_loader if native_loader.available() else None
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)

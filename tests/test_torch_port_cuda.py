@@ -1,4 +1,4 @@
-"""Kernels K1-K5 on the card against their plain PyTorch versions.
+"""Kernels K1-K5 and the JPEG stager on the card against their plain PyTorch versions.
 
 These need an NVIDIA GPU with nvcc (sm_90a) and skip elsewhere. Run them on
 the GPU machine with:
@@ -15,7 +15,7 @@ import torch
 
 from _torch_port import (ANCHORS as ANCHOR_ROWS, FUSE_NET, YOLOV7_640_FUSED_TAILS, ZOO_GROUPS,
                          ZOO_NETS, ibin_logits, min_bin_gap, spread_weights, tiny_plan_cfg,
-                         write_dataset, zoo_net)
+                         write_dataset, write_staging_files, zoo_net)
 from yolo_continuous_tpu_torch.config.plan import TrainPlan
 from yolo_continuous_tpu_torch.detect_api import Detector
 from yolo_continuous_tpu_torch.kernels import bin_decode, decode
@@ -684,6 +684,167 @@ def test_trainer_run_and_resume_on_the_card(cuda, tmp_path):
     print("resume on the card bit-equal:", all(torch.equal(a[k], b[k]) for k in a),
           "relative L2", (num / den) ** 0.5)
     assert (num / den) ** 0.5 <= 1e-3
+
+
+def test_trainer_resume_on_the_card_is_bit_equal(cuda, tmp_path):
+    """JAX's exact resume on the card: with cuDNN's deterministic algorithms
+    (``Trainer`` sets them on CUDA), a run killed after epoch 1 and resumed
+    from ``.last`` ends with the uninterrupted run's weights and EMA bit for
+    bit."""
+    pytest.importorskip("cv2")
+    ann = write_dataset(tmp_path, 6, seed=5)
+    cfg = tiny_plan_cfg("IAuxDetect", 64)
+    cfg.update(train=ann, val=ann, epochs=2, save_dir=str(tmp_path / "a"), save_name="t",
+               resume=False, enhance=True, mosaic_prob=0.7, mixup_prob=0.5, device_cache=False)
+    state_a = Trainer(TrainPlan(dict(cfg)), device="cuda").run(log=lambda *_: None)
+    assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
+
+    class Killed(Exception):
+        pass
+
+    def killer(line):
+        if line.startswith("epoch 2/2 loss"):
+            raise Killed
+
+    cfg["save_dir"] = str(tmp_path / "b")
+    with pytest.raises(Killed):
+        Trainer(TrainPlan(dict(cfg)), device="cuda").run(log=killer)
+    cfg["resume"] = True
+    state_b = Trainer(TrainPlan(dict(cfg)), device="cuda").run(log=lambda *_: None)
+    assert state_b["step"] == state_a["step"] == 6
+    for part in ("model", "ema"):
+        a, b = state_a[part].state_dict(), state_b[part].state_dict()
+        assert set(a) == set(b)
+        for k in a:
+            if torch.is_tensor(a[k]):
+                assert torch.equal(a[k], b[k]), f"{part}.{k}"
+
+
+# ---------------------------------------------------------------- the JPEG stager
+
+@pytest.mark.parametrize("size", [64, 63, 640])
+def test_stage_letterbox_kernel_matches_plain(cuda, tmp_path, size):
+    """Bit for bit on the same decoded pixels: down- and up-scales, 133 x 65
+    at 640, 1 x 1, a grayscale JPEG, a canvas of fill; 63 px takes the
+    kernel's byte stores."""
+    from yolo_continuous_tpu_torch.kernels import staging
+    files = write_staging_files(tmp_path)
+    dec = staging.decode(staging.read_files(files), cuda)
+    assert dec.ok.tolist() == [True] * (len(files) - 2) + [False, False]
+    rows = [staging.canvas_row(dec, i, size, 128)[0] for i in np.nonzero(dec.ok)[0]]
+    rows.append(staging.canvas_row(None, 0, size, 0)[0])
+    geo = torch.tensor(rows, dtype=torch.int64)
+    before = staging.stage_letterbox.launches
+    got = staging.stage_letterbox(dec.src, geo.to(cuda), size)
+    torch.cuda.synchronize()
+    assert staging.stage_letterbox.launches == before + 1
+    assert torch.equal(got.cpu(), staging.stage_letterbox_plain(dec.src.cpu(), geo, size))
+
+
+def test_the_card_stages_what_the_cpu_stages(cuda, tmp_path):
+    """``stage_batch_native`` on the card and on the CPU: the same decode,
+    the kernel against its plain version, so tiles, metas and ``ok`` are
+    equal end to end (the PNG named .jpg and the missing file fail in both)."""
+    from yolo_continuous_tpu_torch.data.native_loader import stage_batch_native
+    files = write_staging_files(tmp_path)
+    for size in (64, 640):
+        tiles, metas, ok = stage_batch_native(files, size, 128, cuda)
+        want = stage_batch_native(files, size, 128, "cpu")
+        assert tiles.device.type == "cuda" and ok.tolist() == want[2].tolist()
+        np.testing.assert_array_equal(tiles.cpu().numpy(), want[0])
+        np.testing.assert_array_equal(metas, want[1])
+
+
+def _native_pair(tmp_path, cuda, **kw):
+    from yolo_continuous_tpu_torch.data import dataset as pds
+    ann = write_dataset(tmp_path, 7, seed=0)
+    args = dict(image_size=64, max_boxes=8, mosaic_prob=0.7, mixup_prob=0.5, epoch_length=2,
+                special_aug_ratio=0.5, seed=5, **kw)
+    return (pds.YoloDataset(pds.load_annotation_file(ann), device=cuda, **args),
+            pds.YoloDataset(pds.load_annotation_file(ann), use_native=True, **args))
+
+
+def test_native_batches_stay_on_the_card(cuda, tmp_path):
+    """A CUDA dataset stages through the card's stager by default, one
+    launch a batch; its tiles stay on the card, and the batch and the pool
+    equal the CPU's native stager's bit for bit."""
+    from yolo_continuous_tpu_torch.kernels import staging
+    gpu, cpu = _native_pair(tmp_path, cuda)
+    assert gpu.use_native and cpu.use_native
+    before = staging.stage_letterbox.launches
+    got, want = gpu.batch([0, 3, 5]), cpu.batch([0, 3, 5])
+    assert staging.stage_letterbox.launches == before + 1
+    assert got[0].device.type == "cuda" and got[0].dtype == torch.uint8
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0])
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g, w)
+    pool, want = gpu.staged_pool(), cpu.staged_pool()
+    assert pool[0].device.type == "cuda" and pool[0].shape[0] == 7
+    np.testing.assert_array_equal(pool[0].cpu().numpy(), want[0])
+
+
+def test_native_cache_stays_on_the_host(cuda, tmp_path, monkeypatch):
+    """``cache_images`` on the card keeps decoded pixels in host memory,
+    nothing on the card; a batch and a pool that hit the cache read no file
+    and stage what the CPU stages, bit for bit."""
+    from yolo_continuous_tpu_torch.kernels import staging
+    gpu, cpu = _native_pair(tmp_path, cuda, cache_images=True)
+    every = list(range(7))
+    np.testing.assert_array_equal(gpu.batch(every)[0].cpu().numpy(), cpu.batch(every)[0])
+    assert len(gpu._decoded) == 7
+    assert all(isinstance(v, np.ndarray) for v in gpu._decoded.values())
+    read, reads = staging.read_files, []
+    monkeypatch.setattr(staging, "read_files", lambda paths: reads.extend(paths) or read(paths))
+    got, want = gpu.batch([0, 3, 5]), cpu.batch([0, 3, 5])
+    pool = gpu.staged_pool()
+    assert reads == [] and got[0].device.type == "cuda"
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(pool[0].cpu().numpy(), cpu.staged_pool()[0])
+
+
+def test_native_staging_enqueues_without_a_host_sync(cuda, tmp_path):
+    """The Trainer's prefetch path with the card's stager: the loader
+    thread stages on its own stream, the step's stream waits on the batch's
+    event, and from files to augmented labels nothing makes the host wait."""
+    from yolo_continuous_tpu_torch.data.dataset import PrefetchLoader
+    gpu, _ = _native_pair(tmp_path, cuda)
+    cfg = tiny_plan_cfg("Detect", 64)
+    cfg.update(train=gpu.annotations[0].path, val=gpu.annotations[0].path, batch_size=3)
+    trainer = Trainer(TrainPlan(dict(cfg)), device="cuda")
+    gpu.reseed(0)
+    gpu.staged_pool()                   # builds and warms the stager
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step, batch in enumerate(map(trainer._ready,
+                                         PrefetchLoader(lambda: trainer._staged_batches(gpu)))):
+            assert batch[0].device.type == "cuda"
+            draw = trainer.draw(step, batch[0].shape[1], *batch[-2:])
+            images, labels, lmask = trainer.augment(draw, batch, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert step == 1 and torch.isfinite(images).all()
+
+
+def test_trainer_run_stages_with_the_card_stager(cuda, tmp_path):
+    """``Trainer.run`` without the pool: every batch through the card's
+    stager, and the pool path too."""
+    from yolo_continuous_tpu_torch.kernels import staging
+    ann = write_dataset(tmp_path, 6, seed=5)
+    cfg = tiny_plan_cfg("Detect", 64)
+    cfg.update(train=ann, val=ann, epochs=1, save_dir=str(tmp_path / "a"), save_name="t",
+               resume=False, mosaic_prob=0.7, mixup_prob=0.5, device_cache=False)
+    before = staging.stage_letterbox.launches
+    trainer = Trainer(TrainPlan(dict(cfg)), device="cuda")
+    state = trainer.run(log=lambda *_: None)
+    (stats,) = trainer.epoch_stats
+    assert state["step"] == 3 and not stats["device_cache"] and np.isfinite(stats["loss"])
+    assert staging.stage_letterbox.launches - before >= 3       # the steps, and the val pass
+    cfg.update(device_cache=True, save_dir=str(tmp_path / "b"))
+    before = staging.stage_letterbox.launches
+    Trainer(TrainPlan(dict(cfg)), device="cuda").run(log=lambda *_: None)
+    assert staging.stage_letterbox.launches > before
 
 
 # ---------------------------------------------------------------- the model zoo

@@ -35,7 +35,8 @@ def test_every_port_module_is_scanned():
                 "nn/fuse.py", "nn/yolo_body.py", "losses/bin_loss.py", "nn/quant.py",
                 "serve.py", "utils/timing.py", "parallel/mesh.py", "parallel/distributed.py",
                 "tools/gen_anchors.py", "tools/gen_annotation.py", "tools/torch_import.py",
-                "tools/torch_export.py", "utils/image.py", "utils/env.py"):
+                "tools/torch_export.py", "utils/image.py", "utils/env.py",
+                "data/native_loader.py", "kernels/staging.py"):
         assert f"yolo_continuous_tpu_torch/{rel}" in FILES
 
 
@@ -55,7 +56,8 @@ import yolo_continuous_tpu_torch.kernels.bin_decode, yolo_continuous_tpu_torch.k
 import yolo_continuous_tpu_torch.ops.sigmoid_bin, yolo_continuous_tpu_torch.ops.schedules
 import yolo_continuous_tpu_torch.train.train_loop, yolo_continuous_tpu_torch.train.checkpoint
 import yolo_continuous_tpu_torch.train.__main__, yolo_continuous_tpu_torch.val
-import yolo_continuous_tpu_torch.data.dataset
+import yolo_continuous_tpu_torch.data.dataset, yolo_continuous_tpu_torch.data.native_loader
+import yolo_continuous_tpu_torch.kernels.staging
 import yolo_continuous_tpu_torch.ops.augment, yolo_continuous_tpu_torch.ops.enhance
 import yolo_continuous_tpu_torch.ops.preprocess
 import yolo_continuous_tpu_torch.eval.evaluator, yolo_continuous_tpu_torch.eval.validate

@@ -101,11 +101,11 @@ def test_torch_export_matches_jax_export(tmp_path):
     cfg = _plan_cfg(tmp_path)
     jtr, jstate = _jax_state(cfg)
     plan = TrainPlan(cfg)
+    with pytest.raises(FileNotFoundError):
+        export_checkpoint(plan, str(tmp_path / "none.pth"))      # no checkpoint yet
     jax_save(plan.save_path, jstate)
     jax_export(plan, str(tmp_path / "jax.pth"))
     want = torch.load(tmp_path / "jax.pth", weights_only=True)
-    with pytest.raises(FileNotFoundError):
-        export_checkpoint(plan, str(tmp_path / "none.pth"))      # no .train.pt yet
     tr = Trainer(plan, device="cpu")
     state = tr.init_state(state_dict=state_dict_from_jax(tr.spec, jstate["params"],
                                                          jstate["batch_stats"]))
@@ -118,6 +118,35 @@ def test_torch_export_matches_jax_export(tmp_path):
         yaml.safe_dump(cfg, f)
     main([str(tmp_path / "plan.yaml"), str(tmp_path / "cli.pth")])
     _same_export(torch.load(tmp_path / "cli.pth", weights_only=True), want)
+
+
+@pytest.mark.parametrize("raw", [False, True])
+def test_torch_export_of_a_jax_checkpoint_matches_jax_export(tmp_path, raw):
+    """With no ``.train.pt``, the port exports the JAX ``.msgpack`` at
+    ``save_path``: its EMA weights (another tree than the raw ones here), or
+    the raw ones with ``--raw``, as JAX's ``export_checkpoint`` does."""
+    import yaml
+    from yolo_continuous_tpu.tools.torch_export import export_checkpoint as jax_export
+    from yolo_continuous_tpu.train.checkpoint import save_checkpoint as jax_save
+    from yolo_continuous_tpu.train.ema import ema_init
+    from yolo_continuous_tpu_torch.tools.torch_export import export_checkpoint, main
+    cfg = _plan_cfg(tmp_path)
+    _, jstate = _jax_state(cfg)
+    rs = np.random.RandomState(11)
+    jstate["ema"] = ema_init({"params": TP.lively(jstate["params"], rs),
+                              "batch_stats": TP.lively(jstate["batch_stats"], rs)})
+    plan = TrainPlan(cfg)
+    jax_save(plan.save_path, jstate)
+    jax_export(plan, str(tmp_path / "jax.pth"), use_ema=not raw)
+    want = torch.load(tmp_path / "jax.pth", weights_only=True)
+    _same_export(export_checkpoint(plan, str(tmp_path / "port.pth"), use_ema=not raw), want)
+    with open(tmp_path / "plan.yaml", "w") as f:
+        yaml.safe_dump(cfg, f)
+    main([str(tmp_path / "plan.yaml"), str(tmp_path / "cli.pth")] + (["--raw"] if raw else []))
+    _same_export(torch.load(tmp_path / "cli.pth", weights_only=True), want)
+    jax_export(plan, str(tmp_path / "other.pth"), use_ema=raw)
+    other = torch.load(tmp_path / "other.pth", weights_only=True)
+    assert any(not torch.equal(other[k], v) for k, v in want.items())   # EMA is not raw
 
 
 def _same_export(got, want):

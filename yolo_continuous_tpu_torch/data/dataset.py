@@ -20,14 +20,24 @@ canvases; every randomized augmentation runs on the device
   mosaic/mixup flags (B,)
 and ``PrefetchLoader`` keeps a batch ahead in a background thread.
 
-Deliberate differences from the JAX module: the port stages with cv2
-(``stage_image``, ``INTER_CUBIC``) alone. JAX's C++ staging library
-(``use_native``) gives other canvases and is picked by whether it builds,
-so one plan and seed would train on other batches on another machine; it
-stays out until a measurement on the card shows it wins (ROADMAP.md
-Queue 1 item 22). And ``PrefetchLoader`` re-raises an exception of its
-worker thread (a missing image, say) in the consuming thread; the JAX
-loader ends the epoch early and silently.
+Staging, as JAX's (``use_native``): the native stager
+(``data/native_loader.py``) or cv2 (``stage_image``, ``INTER_CUBIC``). JAX
+takes its C++ library wherever it builds; the port takes the card's stager
+(a threaded decode on the host, then one ``stage_letterbox`` launch a
+batch) when the dataset's ``device`` is CUDA, and cv2 on the CPU unless
+``use_native=True`` asks for the stager's plain version. Both give the C++
+library's canvases bit for bit. A file the stager cannot decode is staged
+with cv2, as JAX stages it. Tiles staged on the card stay there (a CUDA u8
+tensor); metas, boxes, masks and flags are numpy. With ``cache_images`` the
+native path keeps each file's decoded pixels in host memory and stages them
+again (JAX keeps its library's canvases): the same batches, and nothing of
+the cache on the card.
+
+Deliberate differences from the JAX module: the card's choice does not
+depend on what builds (a CUDA dataset whose stager does not build raises;
+nothing moves quietly to cv2). And ``PrefetchLoader`` re-raises an
+exception of its worker thread (a missing image, say) in the consuming
+thread; the JAX loader ends the epoch early and silently.
 """
 from __future__ import annotations
 
@@ -37,8 +47,13 @@ from dataclasses import dataclass
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
+from ..kernels import _build
 from ..ops.preprocess import cv2, stage_image
+from .native_loader import stage_batch_native
+
+POOL_CHUNK = 64     # images the native stager stages at a time into the pool
 
 
 @dataclass
@@ -91,7 +106,9 @@ class YoloDataset:
         special_aug_ratio: float = 0.7,   # yolo_dataset_git.py:54
         train: bool = True,
         seed: int = 0,
+        use_native: bool = None,
         cache_images: bool = False,
+        device=None,
     ):
         self.annotations = list(annotations)
         self.size = image_size
@@ -106,9 +123,17 @@ class YoloDataset:
         self.seed = seed
         self.rng = np.random.RandomState(seed)
         self.epoch_now = 0
-        self._cache: dict = {}
-        # optional in-RAM cache of staged canvases (decode+resize once);
-        # ~S*S*3 bytes per image — only for datasets that fit in memory
+        self._cache: dict = {}      # cv2 canvases and metas by index (cache_images)
+        self._decoded: dict = {}    # the native stager's decoded pixels by path (cache_images)
+        # where staged tiles live; the native stager by default exactly where
+        # that is the card, and there it must build
+        self.device = torch.device(device if device is not None else "cpu")
+        self.use_native = self.device.type == "cuda" if use_native is None else bool(use_native)
+        if self.use_native and self.device.type == "cuda":
+            _build.library("staging")
+        # optional in-RAM cache: cv2 keeps staged canvases (~S*S*3 bytes an
+        # image), the native stager decoded pixels (iw*ih*3 bytes an image),
+        # both on the host; only for datasets that fit in memory
         self.cache_images = cache_images
 
     def __len__(self):
@@ -185,6 +210,8 @@ class YoloDataset:
 
     def batch(self, indices: Sequence[int]):
         nt = self.n_tiles
+        if self.use_native:
+            return self._batch_native(indices, nt)
         outs = [self.sample(i) for i in indices]
         out = (np.stack([o[0] for o in outs]),
                np.stack([o[1] for o in outs]),
@@ -197,6 +224,35 @@ class YoloDataset:
             out = (tiles[:, :1], metas[:, :1], boxes[:, :1], masks[:, :1],
                    np.zeros_like(mosaic), np.zeros_like(mixup))
         return out
+
+    def _batch_native(self, indices: Sequence[int], nt: int):
+        """``batch`` through the native stager: the (B, nt) tile slots in one
+        ``stage_batch_native`` call (one decode, one launch), unused slots as
+        zeros. Files the stager cannot decode are staged with cv2 by
+        ``_staged``, as JAX stages them, and copied into their slots after."""
+        B, S = len(indices), self.size
+        plans = [self._tile_plan(i) for i in indices]
+        slots = [list(idxs) + [None] * (nt - len(idxs)) for idxs, _, _ in plans]
+        flat = [j for row in slots for j in row]
+        tiles, metas, ok = stage_batch_native(
+            [None if j is None else self.annotations[j].path for j in flat], S, 128,
+            self.device, cache=self._decoded if self.cache_images else None)
+        tiles = torch.as_tensor(tiles).view(B, nt, S, S, 3)
+        metas = metas.reshape(B, nt, 5)
+        metas[np.array([[j is None for j in row] for row in slots], bool)] = (1, 1, 1, 0, 0)
+        boxes = np.zeros((B, nt, self.max_boxes, 5), np.float32)
+        masks = np.zeros((B, nt, self.max_boxes), bool)
+        for k, j in enumerate(flat):
+            b, t = divmod(k, nt)
+            if j is None:
+                continue
+            if not ok[k]:
+                canvas, metas[b, t], _, _ = self._staged(j)
+                tiles[b, t] = _on(torch.as_tensor(canvas), self.device)
+            boxes[b, t], masks[b, t] = self._boxes(j)
+        mosaic = np.array([p[1] for p in plans], bool)
+        mixup = np.array([p[2] for p in plans], bool)
+        return (_host_or_device(tiles), metas, boxes, masks, mosaic, mixup)
 
     # -- device-cache mode ---------------------------------------------------
     def staged_pool(self):
@@ -213,9 +269,23 @@ class YoloDataset:
         boxes = np.zeros((N, MB, 5), np.float32)
         masks = np.zeros((N, MB), bool)
         for j in range(N):
-            tiles[j], metas[j], _, _ = self._staged(j)
             boxes[j], masks[j] = self._boxes(j)
-        return tiles, metas, boxes, masks
+        if not self.use_native:
+            for j in range(N):
+                tiles[j], metas[j], _, _ = self._staged(j)
+            return tiles, metas, boxes, masks
+        # through the same stager as the batches: the pool must equal them
+        tiles = torch.empty((N, S, S, 3), dtype=torch.uint8, device=self.device)
+        for j0 in range(0, N, POOL_CHUNK):
+            j1 = min(j0 + POOL_CHUNK, N)
+            _, metas[j0:j1], ok = stage_batch_native(
+                [a.path for a in self.annotations[j0:j1]], S, 128, self.device,
+                out=tiles[j0:j1], cache=self._decoded if self.cache_images else None)
+            for j in range(j0, j1):
+                if not ok[j - j0]:
+                    canvas, metas[j], _, _ = self._staged(j)
+                    tiles[j] = _on(torch.as_tensor(canvas), self.device)
+        return _host_or_device(tiles), metas, boxes, masks
 
     def batch_plan(self, indices: Sequence[int]):
         """Index-only analogue of `batch`: (tile_idx (B, n_tiles) int32,
@@ -260,6 +330,19 @@ class YoloDataset:
         for idx in self._epoch_order(batch_size, shuffle, drop_last):
             yield self.batch_plan(idx)
         self.epoch_now += 1
+
+
+def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``; to the card by a copy that does not make the host
+    wait (``ops.augment.to_device``)."""
+    from ..ops.augment import to_device
+    return to_device(t, device)
+
+
+def _host_or_device(tiles: torch.Tensor):
+    """Staged tiles as the loader emits them: numpy on the CPU, the CUDA
+    tensor on the card."""
+    return tiles.numpy() if tiles.device.type == "cpu" else tiles
 
 
 class InfiniteLoader:

@@ -29,8 +29,11 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # flags of one source, after it on the command line: K3, K4 and K5 encode TMA
-# tensor maps with cuTensorMapEncodeTiled, which libcuda provides
+# tensor maps with cuTensorMapEncodeTiled, which libcuda provides; the stager
+# keeps every fp32 product and sum rounded on its own (no FMA contraction), as
+# the host library it replaces computes
 SOURCE_FLAGS: Dict[str, tuple] = {name: ("-lcuda",) for name in ("decode", "bin_decode", "fused_conv")}
+SOURCE_FLAGS["staging"] = ("-fmad=false",)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points of each source: name -> argtypes (all return a cudaError_t as int)
@@ -58,6 +61,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "fused_conv_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "fused_conv_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "fused_conv_check_rcp": (ctypes.c_uint, ctypes.c_uint, _P, _P),
+    },
+    "staging": {
+        "stage_letterbox": (_P, _P, _P, _I, _I, _P),
     },
 }
 

@@ -8,7 +8,8 @@ where it sits (``StagingMeta``), so the device augmentation
 (``ops/augment.py``) can warp back through the original frame;
 ``letterbox`` serves ``predict`` and ``eval/validate``. Each resizes as the
 JAX function does: ``stage_image`` with ``INTER_CUBIC``, ``letterbox`` with
-``INTER_LINEAR``.
+``INTER_LINEAR``. ``prepare_test_image`` is the reference's ``detect.py``
+input, BGR as it reads it (the ``Detector`` takes RGB).
 """
 from __future__ import annotations
 
@@ -90,3 +91,15 @@ def stage_image(img_rgb: np.ndarray, size: int = 640,
     resized = cv2.resize(img_rgb, (nw, nh), interpolation=cv2.INTER_CUBIC)
     canvas[oy:oy + nh, ox:ox + nw] = resized
     return canvas, StagingMeta(iw=iw, ih=ih, scale=r, ox=float(ox), oy=float(oy))
+
+
+def prepare_test_image(image_path: str, target_size=(640, 640)):
+    """The reference's ``detect.py:16-26`` input: ``cv2.imread`` (BGR),
+    ``letterbox`` with fill 114 and no stretch, /255 -> ((1, H, W, 3) fp32
+    BGR, the image as read)."""
+    _need_cv2("prepare_test_image")
+    image = cv2.imread(image_path)
+    if image is None:
+        raise FileNotFoundError(image_path)
+    img, _, _ = letterbox(image, target_size, color=(114, 114, 114), scale_fill=False)
+    return (np.asarray(img, np.float32) / 255.0)[None], image

@@ -6,7 +6,10 @@ Users who train with the port drop the weights into the reference's
 port's ``Detector`` serves the file too (a ``.pth`` beside the plan's
 ``save_path`` is the first weights it reads). The port's modules carry the
 reference's names and layouts, so the export is the model's state dict. The
-EMA weights are exported by default: what evaluation and serving use.
+EMA weights are exported by default: what evaluation and serving use. The
+checkpoint is the port's ``.train.pt`` beside ``save_path`` or, where there
+is none, the JAX package's ``.msgpack`` at ``save_path`` (read without jax
+or flax, in ``detect_api.saved_weights``'s order).
 
     python -m yolo_continuous_tpu_torch.tools.torch_export plan.yaml out.pth
     python -m yolo_continuous_tpu_torch.tools.torch_export plan.yaml out.pth --raw
@@ -21,15 +24,25 @@ import torch
 
 
 def export_checkpoint(plan, out_path: str, use_ema: bool = True) -> Dict[str, torch.Tensor]:
-    """Read the plan's train checkpoint (the port's ``.train.pt`` beside
-    ``save_path``) and write its weights (EMA unless ``use_ema`` is false) as
-    a ``.pth`` state dict of fp32 CPU tensors; returns it."""
-    from ..train.checkpoint import load_checkpoint, serving_state_dict, train_checkpoint_path
+    """Read the plan's checkpoint (the port's ``.train.pt`` beside
+    ``save_path``, else the JAX ``.msgpack`` at ``save_path``) and write its
+    weights (EMA unless ``use_ema`` is false) as a ``.pth`` state dict of
+    fp32 CPU tensors; returns it."""
+    from ..train.checkpoint import (jax_weights, load_checkpoint, read_jax_msgpack,
+                                    serving_state_dict, train_checkpoint_path)
     ckpt = train_checkpoint_path(plan.save_path)
-    if not os.path.exists(ckpt):
-        raise FileNotFoundError(f"no checkpoint at {ckpt}")
-    sd = {k: v.detach().cpu().clone()
-          for k, v in serving_state_dict(load_checkpoint(ckpt), use_ema).items()}
+    if os.path.exists(ckpt):
+        sd = serving_state_dict(load_checkpoint(ckpt), use_ema)
+    elif os.path.exists(plan.save_path):
+        from ..config.plan import cvt_cfg
+        from ..nn.builder import build_model_spec
+        from .jax_weights import state_dict_from_jax
+        spec = build_model_spec(cvt_cfg(plan.model_cfg), plan.image_chan, plan.anchors,
+                                plan.num_labels, plan.anchors_mask)
+        sd = state_dict_from_jax(spec, *jax_weights(read_jax_msgpack(plan.save_path), use_ema))
+    else:
+        raise FileNotFoundError(f"no checkpoint at {ckpt} or {plan.save_path}")
+    sd = {k: torch.as_tensor(v).detach().cpu().clone() for k, v in sd.items()}
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     torch.save(sd, out_path)
     return sd

@@ -27,7 +27,16 @@ objects, updated in place where JAX returns a new tree (no copy of the
 weights a step). The body runs in bf16 on CUDA and fp32 on the CPU on fp32
 master weights (``nn/layers.BodyConv2d``); the head logits and the loss are
 fp32. No autocast: its rounding differs from JAX's. TF32 is off on CUDA, as
-in the ``Detector``.
+in the ``Detector``, and cuDNN runs deterministic algorithms
+(``cudnn.deterministic``, no ``benchmark``): its default weight-gradient
+algorithms sum with atomics, and JAX's trainer promises exact resume
+(``train_loop.py:15``), which a kill-and-resume on the card keeps bit for bit.
+
+Without the device pool, the prefetch thread stages each batch with the
+dataset's stager (on CUDA the native one, ``data/native_loader.py``: a
+threaded decode and ``stage_letterbox``) on a stream of its own; the step's
+stream waits on the batch's event, so the host never waits for the card
+there.
 
 Memory and parallelism, as JAX ``train_loop.py:50-74, 79-102``:
 
@@ -107,6 +116,8 @@ class Trainer:
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
         self.plan = plan
         self.remat = plan.cfg.get("remat", False) if remat is None else remat
         self.bn_remat = bool(plan.cfg.get("bn_remat", False))
@@ -231,11 +242,45 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _pinned(self, batch):
-        """A host batch with its arrays in pinned tensors (on CUDA; the
-        mosaic and mixup flags stay numpy on the host)."""
+        """A host batch with its arrays in pinned tensors (on CUDA; tiles the
+        stager left on the card stay there, and the mosaic and mixup flags
+        stay numpy on the host)."""
         if self.device.type != "cuda":
             return batch
-        return tuple(torch.from_numpy(a).pin_memory() for a in batch[:4]) + tuple(batch[4:])
+        return tuple(torch.from_numpy(a).pin_memory() if isinstance(a, np.ndarray) else a
+                     for a in batch[:4]) + tuple(batch[4:])
+
+    def _staged_batches(self, ds: YoloDataset):
+        """An epoch's batches as the prefetch thread stages them, each with
+        the CUDA event that follows its staging (None on the CPU): on CUDA
+        the thread stages on a stream of its own."""
+        plan = self.plan
+        batches = ds.epoch_batches(plan.batch_size, plan.shuffle, plan.drop_last)
+        if self.device.type != "cuda":
+            yield from ((b, None) for b in batches)
+            return
+        side = torch.cuda.Stream(self.device)
+        while True:
+            with torch.cuda.stream(side):
+                batch = next(batches, None)
+                if batch is None:
+                    return
+                batch = self._pinned(batch)
+                ready = torch.cuda.Event()
+                ready.record(side)
+            yield batch, ready
+
+    def _ready(self, item):
+        """A staged batch for the current stream, which waits on its event
+        (the host does not); its tiles on the card are marked as used there,
+        so their memory is not handed out before the step has read them."""
+        batch, ready = item
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            if isinstance(batch[0], torch.Tensor) and batch[0].is_cuda:
+                batch[0].record_stream(stream)
+        return batch
 
     def draw(self, host_step: int, n_tiles: int, mosaic, mixup) -> BatchDraw:
         """The augmentation parameters of step ``host_step`` with the batch's
@@ -270,11 +315,11 @@ class Trainer:
             load_annotation_file(plan.train_indexes), plan.image_size,
             plan.max_boxes, plan.mosaic, plan.mixup, plan.mosaic_prob,
             plan.mixup_prob, plan.epochs, plan.special_aug_ratio,
-            train=True, seed=plan.seed, cache_images=plan.cache_images)
+            train=True, seed=plan.seed, cache_images=plan.cache_images, device=self.device)
         val_ds = YoloDataset(
             load_annotation_file(plan.val_indexes), plan.image_size,
             plan.max_boxes, train=False, seed=plan.seed,
-            cache_images=plan.cache_images)
+            cache_images=plan.cache_images, device=self.device)
 
         steps_per_epoch = max(len(train_ds) // plan.batch_size, 1)
         sched = LRSchedule(
@@ -324,7 +369,7 @@ class Trainer:
         pool = None
         if device_cache:
             t0 = time.time()
-            pool = tuple(torch.from_numpy(a).to(self.device) for a in train_ds.staged_pool())
+            pool = tuple(to_device(a, self.device) for a in train_ds.staged_pool())
             log(f"device cache: {pool[0].shape[0]} staged images -> device "
                 f"({pool[0].numel() / 1e6:.0f} MB, {time.time() - t0:.0f}s)")
 
@@ -345,8 +390,7 @@ class Trainer:
                 # index batches are a few hundred bytes: no prefetch thread
                 loader = train_ds.epoch_plans(plan.batch_size, plan.shuffle, plan.drop_last)
             else:
-                loader = PrefetchLoader(lambda: map(self._pinned, train_ds.epoch_batches(
-                    plan.batch_size, plan.shuffle, plan.drop_last)))
+                loader = map(self._ready, PrefetchLoader(lambda: self._staged_batches(train_ds)))
             batches = iter(loader)
             while True:
                 t_wait = time.perf_counter()
