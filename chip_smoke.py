@@ -183,6 +183,28 @@ failure exits non-zero before the result line.
    and ``staged_pool`` of the train set each way, in 2. Prints a
    ``native_staging`` JSON line; ``--only native_staging`` runs this phase
    alone (no result line).
+11. bench: the port's bench, ``python -m yolo_continuous_tpu_torch.bench
+   16`` in a child process (one more a section), with
+   ``BENCH_INFER_EXTRAS=fused_tails,int8``, ``BENCH_TRAIN_MODES=base,bn_remat``
+   and a ``BENCH_TOTAL_BUDGET`` of 600 s: yolov7 @640 train steps at batch
+   16 with and without ``bn_remat``, bf16-head requests at batch 16 and 1,
+   ``nms_single`` of 25,200 candidates, the fused-tail request at batch 1
+   and the int8 batch. It fails if the bench's last line holds an
+   ``error``, names another device than the card, or lacks one of
+   ``value``, ``train_sweep`` "16" and "16/bn_remat", ``infer_img_s``,
+   ``infer_1_ms``, ``nms_p50_ms``, ``infer_1_ms_fused_tails`` and
+   ``infer_img_s_int8`` > 0. In this process, one call of each function
+   the bench times, counters at 0 around each: K3 and K1 once a request,
+   K1 once in ``nms_single``, K5 24 times in the fused-tail request
+   (``launches_bench`` in the kernels line); on the same inputs K3 on the
+   bf16 head's maps at batch 16 and 1, K1 on ``nms_single``'s candidates
+   and K5 on the 24 inputs of the batch-1 fused-tail request against their
+   plain versions, K5 timed there beside its bound. Prints a ``bench`` JSON
+   line (the bench's line, each pass's ms and each section's peak memory,
+   the bench's ``infer_img_s`` beside phase 4's default img/s and its
+   ``value`` beside phase 5's step img/s, not gated); the bench's stderr is
+   kept in ``runs/chip_smoke_bench/``. ``--only bench`` runs this phase
+   alone (no result line).
 
 Kernel times are device times: ``cuda_ms`` holds the stream with a sleep
 kernel while the host enqueues the timed calls, so that a kernel shorter
@@ -193,8 +215,9 @@ error of each kernel; ``launches`` on phase 4's main paths,
 ``launches_validate_map`` on phase 6's ``validate_map`` calls,
 ``launches_model_zoo`` on phase 7's counted requests and ``launches_serve``
 on phase 8's serving window, ``launches_parallel`` on phase 9's counted
-calls, ``launches_native_staging`` on phase 10's run; K3's 4-level time and
-bound at the P6 shape; a sixth entry, ``stage_letterbox``, whose
+calls, ``launches_native_staging`` on phase 10's run, ``launches_bench`` on
+phase 11's calls; K3's 4-level time and bound at the P6 shape; K5's time,
+bound and error at batch 1 (``*_bs1``); a sixth entry, ``stage_letterbox``, whose
 ``launches`` are phase 10's run's, its main path) and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -327,9 +350,9 @@ def min_bin_gap(maps, nbin: int) -> float:
     return gap
 
 
-def fused_tail_shapes():
+def fused_tail_shapes(batch: int = BS):
     """(C_in, C_out, H, W) of every K5 call of one yolov7 @640 fused-tail
-    request at batch 16, in call order, read off a forward on the card;
+    request at ``batch``, in call order, read off a forward on the card;
     each call must take the wgmma + TMA form (``form_for``)."""
     import torch
     from yolo_continuous_tpu_torch.detect_api import Detector
@@ -346,12 +369,15 @@ def fused_tail_shapes():
     layers.fused_pointwise_conv = record
     try:
         with torch.inference_mode():
-            det.forward(torch.zeros(BS, SIZE, SIZE, 3, device="cuda"))
+            det.forward(torch.zeros(batch, SIZE, SIZE, 3, device="cuda"))
     finally:
         layers.fused_pointwise_conv = fn
     torch.cuda.synchronize()
     if set(forms) != {"wgmma"}:
-        fail(f"yolov7 @640 fused tails: K5 forms {forms}, every call must take wgmma")
+        fail(f"yolov7 @640 fused tails at batch {batch}: K5 forms {forms}, every call must "
+             f"take wgmma")
+    if len(shapes) != 24:
+        fail(f"yolov7 @640 fused tails at batch {batch}: {len(shapes)} K5 calls, expected 24")
     return shapes
 
 
@@ -906,7 +932,7 @@ def phase_main():
          ("fused_pointwise_conv_cuda", "decode_outputs_cuda", "nms_suppress"),
          {"fused_pointwise_conv_cuda": 72, "decode_outputs_cuda": 3, "decode_outputs_bin_cuda": 0}),
     )
-    dets = {}
+    dets, img_s = {}, {}
     for label, kw, max_dets, must, exact in paths:
         det = dets[label] = Detector(random_weights_plan(kw.get("model_cfg")), device="cuda",
                                      seed=0, fused_tails=kw.get("fused_tails"))
@@ -938,6 +964,7 @@ def phase_main():
             fail(f"{label} path: the decode takes the {form} form, not tma")
         del maps
         stages = stage_times(det, images, decode)
+        img_s[label] = stages["img_s"]
         if label in ("default", "fused_tails"):
             # host time to enqueue one request on an idle card: near total_ms,
             # the host and not the card sets the pace
@@ -972,7 +999,7 @@ def phase_main():
         label: dict(median_forward_ms=float(np.median(t["forward_ms"])),
                     median_total_ms=float(np.median(t["total_ms"])), **t)
         for label, t in turns.items()}}), flush=True)
-    return total
+    return total, img_s["default"]
 
 
 def profile_window(fn, calls: int = 3, grad: bool = False) -> dict:
@@ -1135,6 +1162,7 @@ def phase_train():
         launches_per_step=prof.get("launches_per_call"), profile=prof)}), flush=True)
     del trainer, state
     torch.cuda.empty_cache()
+    return BS / float(np.median(step_ms)) * 1e3
 
 
 def rel_l2(got: dict, want: dict) -> float:
@@ -3002,10 +3030,199 @@ def phase_native_staging():
     return launches, row
 
 
+# ---------------------------------------------------------------- phase 11
+
+# the port's bench as the smoke test runs it: every section and lever of the
+# JAX bench, within a budget that keeps the whole script inside its limit
+BENCH_ENV = {"BENCH_INFER_EXTRAS": "fused_tails,int8", "BENCH_TRAIN_MODES": "base,bn_remat",
+             "BENCH_TOTAL_BUDGET": "600", "BENCH_INFER_RESERVE": "240"}
+BENCH_KEYS = ("value", "infer_img_s", "infer_1_ms", "nms_p50_ms", "infer_1_ms_fused_tails",
+              "infer_img_s_int8")
+
+
+def run_bench() -> tuple:
+    """``python -m yolo_continuous_tpu_torch.bench 16`` in its own process
+    (which starts one a section) under ``BENCH_ENV``; returns its last line
+    and its ``[bench passes]`` records. Past its budget it gets a SIGTERM,
+    which prints its line and stops its section."""
+    from yolo_continuous_tpu_torch import bench
+    env = dict(os.environ, **BENCH_ENV)
+    proc = subprocess.Popen([sys.executable, "-m", "yolo_continuous_tpu_torch.bench", str(BS)],
+                            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        out, err = proc.communicate(timeout=int(BENCH_ENV["BENCH_TOTAL_BUDGET"]) + 60)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            out, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    root = os.path.join(HERE, "runs", "chip_smoke_bench")
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "bench.stderr"), "w") as f:
+        f.write(err)
+    for line in err.splitlines():
+        if line.startswith("[bench "):
+            print(f"  {line}", flush=True)
+    lines = out.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"bench: exit code {proc.returncode}, stderr {err[-1500:]}")
+    try:
+        result = json.loads(lines[-1])
+    except json.JSONDecodeError:
+        fail(f"bench: the last line is not JSON: {lines[-1][:300]}")
+    passes = [json.loads(line[len(bench.PASSES):]) for line in err.splitlines()
+              if line.startswith(bench.PASSES)]
+    return result, passes
+
+
+def check_bench_result(result) -> None:
+    """The bench's line: no ``error``, the card as its device, every key > 0."""
+    if "error" in result:
+        fail(f"bench: error {result['error']}")
+    if result.get("device", {}).get("backend") != "cuda":
+        fail(f"bench: ran on {result.get('device')}, not the card")
+    sweep = result.get("train_sweep") or {}
+    got = {k: result.get(k) for k in BENCH_KEYS}
+    got.update({f"train_sweep[{k!r}]": sweep.get(k) for k in (str(BS), f"{BS}/bn_remat")})
+    bad = {k: v for k, v in got.items() if not (isinstance(v, (int, float)) and v > 0)}
+    if bad:
+        fail(f"bench: keys missing or not > 0: {bad}")
+
+
+def bench_calls(total) -> tuple:
+    """One call of each function the bench times, on its inputs (bs 16 and 1
+    @640, the first NMS draw), each with the counters at 0 just before and
+    read just after: K3 once and K1 once a request, K1 once in
+    ``nms_single``, K5 24 times in the fused-tail request. On the same
+    calls, each kernel against its plain version: K3 on the bf16 head's
+    maps (cast to fp32, in the TMA form) at bs 16 and 1, K1 on
+    ``nms_single``'s candidates, K5 at the 24 shapes of the fused-tail
+    request at batch 1 on O(1) inputs (timed beside its plain version and
+    its bound)."""
+    import torch
+    from yolo_continuous_tpu_torch import bench
+    from yolo_continuous_tpu_torch.detect_api import Detector
+    from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda, form_for
+    from yolo_continuous_tpu_torch.kernels.fused_conv import (fused_pointwise_conv_cuda,
+                                                              fused_pointwise_conv_plain)
+    from yolo_continuous_tpu_torch.kernels.nms import nms_suppress
+    from yolo_continuous_tpu_torch.ops.decode import decode_level
+    from yolo_continuous_tpu_torch.ops.nms import suppress_plain, top_candidates
+
+    plan = bench.infer_plan(SIZE)
+    variants, singles, preds = bench.infer_inputs(BS, SIZE)
+    x16, x1, p = (torch.from_numpy(a[0]).cuda() for a in (variants, singles, preds))
+    del variants, singles, preds
+    det = Detector(plan, device="cuda", head_dtype=torch.bfloat16)
+    det_f = Detector(plan, device="cuda", head_dtype=torch.bfloat16, fused_tails=True)
+    det_q = Detector(plan, device="cuda", head_dtype=torch.bfloat16, quantize=True)
+    det_q.calibrate(x16)
+    calls = {"infer_img_s": (bench.infer_step(det), x16, BS),
+             "infer_1_ms": (bench.infer_step(det), x1, 1),
+             "nms_p50_ms": (bench.nms_step, p, None),
+             "infer_1_ms_fused_tails": (bench.infer_step(det_f), x1, 1),
+             "infer_img_s_int8": (bench.infer_step(det_q), x16, BS)}
+    want = {key: {"decode_outputs_cuda": int(bs is not None), "nms_suppress": 1,
+                  "fused_pointwise_conv_cuda": 24 if key == "infer_1_ms_fused_tails" else 0,
+                  "nms_suppress_tiled": 0, "decode_outputs_bin_cuda": 0, "stage_letterbox": 0}
+            for key, (_, _, bs) in calls.items()}
+    zero = torch.zeros((), device="cuda")
+    per_call = {}
+    for key, (fn, x, bs) in calls.items():
+        torch.cuda.synchronize()
+        for c in counters():
+            c.launches = 0
+        out = fn(x, zero)
+        torch.cuda.synchronize()
+        per_call[key] = {c.__name__: c.launches for c in counters()}
+        if bs is None:
+            if out[0].shape != (300, 4) or not torch.isfinite(out[0]).all() or not out[3].any():
+                fail(f"bench {key}: nms_single gave {tuple(out[0].shape)}, none kept or not finite")
+        else:
+            check_request(f"bench {key}", out, det.spec.nc, bs)
+        if per_call[key] != want[key]:
+            fail(f"bench {key}: launches {per_call[key]}, expected {want[key]}")
+    for name, n in ((c.__name__, sum(pc[c.__name__] for pc in per_call.values()))
+                    for c in counters()):
+        total[name] += n
+
+    checks = {}
+    spec = det.spec
+    with torch.inference_mode():
+        for bs, x in ((BS, x16), (1, x1)):
+            maps = [m.float() for m in det.forward(x)]
+            if form_for(maps) != "tma":
+                fail(f"bench: K3 at bs {bs} takes the {form_for(maps)} form, not tma")
+            got = decode_outputs_cuda(maps, spec.anchors, spec.strides, True)
+            plain = torch.cat([decode_level(m, torch.tensor(a), float(s), True)
+                               for m, a, s in zip(maps, spec.anchors, spec.strides)], 1)
+            err = (got - plain).abs().max().item()
+            if err > DECODE_TOL:
+                fail(f"bench: K3 at bs {bs} on the bf16 head's maps: max abs err {err}")
+            checks[f"k3_bs{bs}_max_abs_err"] = err
+        boxes, _, classes, valid = top_candidates(p[None], CONF, 300)
+        keep = nms_suppress(boxes, classes, valid, IOU)
+        if not torch.equal(keep, suppress_plain(boxes, classes, valid, IOU)):
+            fail("bench: K1 on nms_single's candidates differs from the plain version")
+        checks["k1_nms_single_keep_equal"] = True
+    del det, det_f, det_q
+    torch.cuda.empty_cache()
+
+    # K5 at the 24 shapes of the fused-tail request at batch 1, on O(1)
+    # inputs as phase 2 draws them: the request's own activations are too
+    # small under random weights for an absolute tolerance to test anything
+    shapes = fused_tail_shapes(1)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    k5 = dict.fromkeys(("ms", "plain_ms", "bound_ms", "max_abs_err"), 0.0)
+    for c, n, h, w in shapes:
+        args = k5_inputs(g, 1, c, n, h, w, torch.bfloat16)
+        with torch.inference_mode():
+            k5["max_abs_err"] = max(k5["max_abs_err"], k5_compare(args, K5_TOL["bf16"]))
+            if not torch.equal(fused_pointwise_conv_cuda(*args),
+                               fused_pointwise_conv_cuda(*args)):
+                fail(f"bench: K5 at {tuple(args[0].shape)}: two calls on one input differ")
+            k5["ms"] += cuda_ms(lambda: fused_pointwise_conv_cuda(*args))
+            k5["plain_ms"] += cuda_ms(lambda: fused_pointwise_conv_plain(*args), iters=5)
+        nbytes = (c * h * w + n * c + n * h * w) * 2 + 2 * n * 4
+        k5["bound_ms"] += max(nbytes / HBM_BYTES_S, 2.0 * n * c * h * w / BF16_FLOP_S) * 1e3
+    checks["k5_bs1"] = dict(calls=len(shapes), form="wgmma", **k5)
+    print(f"bench: K5 at batch 1 at the fused-tail request's 24 shapes: {k5['ms']:.4f} ms "
+          f"(bound {k5['bound_ms']:.4f}, plain {k5['plain_ms']:.4f}), max abs err "
+          f"{k5['max_abs_err']:.3g}", flush=True)
+    return per_call, checks
+
+
+def phase_bench(beside=None):
+    """The port's bench on the card, then its timed functions counted and
+    their kernels held against their plain versions in this process."""
+    import torch
+    t_phase = time.perf_counter()
+    result, passes = run_bench()
+    check_bench_result(result)
+    total = {fn.__name__: 0 for fn in counters()}
+    per_call, checks = bench_calls(total)
+    beside = beside or {}
+    rec = dict(result=result, passes=passes, env=BENCH_ENV, launches_per_call=per_call,
+               kernels_at_bench_shapes=checks,
+               # phase 4's default path (fp32 head) and phase 5's step, not gated
+               beside=dict(bench_infer_img_s=result["infer_img_s"],
+                           phase4_default_img_s=beside.get("infer_img_s", "phase 4 not run"),
+                           bench_value=result["value"],
+                           phase5_train_img_s=beside.get("train_img_s", "phase 5 not run")),
+               phase_s=time.perf_counter() - t_phase)
+    print(json.dumps({"bench": rec}), flush=True)
+    del rec
+    torch.cuda.empty_cache()
+    return total, checks["k5_bs1"]
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port")
-    ap.add_argument("--only", choices=["serve", "parallel_and_tools", "native_staging"],
+    ap.add_argument("--only", choices=["serve", "parallel_and_tools", "native_staging", "bench"],
                     help="build the kernels and run this phase alone (a debugging aid: "
                          "it prints no result line)")
     ap.add_argument("--serve-clients", nargs=2, metavar=("PORT", "JPEGS"),
@@ -3035,7 +3252,7 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
     if args.only:
         {"serve": phase_serve, "parallel_and_tools": phase_parallel_and_tools,
-         "native_staging": phase_native_staging}[args.only]()
+         "native_staging": phase_native_staging, "bench": phase_bench}[args.only]()
         print(f"chip_smoke: --only {args.only} passed (no result line)", flush=True)
         return
 
@@ -3045,18 +3262,17 @@ def main() -> None:
     bin_spec = build_model_spec(ibin_net(), plan.image_chan, plan.anchors, plan.num_labels,
                                 plan.anchors_mask)
     k5_shapes = fused_tail_shapes()
-    if len(k5_shapes) != 24:
-        fail(f"yolov7 @640 fused tails: {len(k5_shapes)} K5 calls, expected 24")
     report = phase_kernels(spec, bin_spec, k5_shapes)
     phase_reference()
-    launches = phase_main()
-    phase_train()
+    launches, main_img_s = phase_main()
+    train_img_s = phase_train()
     phase_train_reference()
     launches_validate_map = phase_train_run()
     launches_model_zoo, k3_p6 = phase_model_zoo()
     launches_serve = phase_serve()
     launches_parallel = phase_parallel_and_tools()
     launches_native, stager = phase_native_staging()
+    launches_bench, k5_bs1 = phase_bench(dict(infer_img_s=main_img_s, train_img_s=train_img_s))
 
     meta = {
         "decode_level": ("csrc/decode.cu", "yolo_continuous_tpu/kernels/decode_pallas.py:67",
@@ -3083,6 +3299,9 @@ def main() -> None:
         if name == "decode_level":  # K3 at the P6 shape: 4 levels, 16 x 102,000 x 85
             other.update({f"{k}_p6": k3_p6[k] for k in ("ms", "strided_ms", "bound_ms",
                                                          "max_abs_err")})
+        if name == "fused_conv":    # K5 at batch 1: the bench's fused-tail request, 24 calls
+            other.update({f"{k}_bs1": k5_bs1[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                           "max_abs_err")})
         kernels.append(dict(name=name, route="cuda", source=f"yolo_continuous_tpu_torch/{src}",
                             replaces=replaces, launches=launches[counter],
                             launches_validate_map=launches_validate_map[counter],
@@ -3090,6 +3309,7 @@ def main() -> None:
                             launches_serve=launches_serve[counter],
                             launches_parallel=launches_parallel[counter],
                             launches_native_staging=launches_native[counter],
+                            launches_bench=launches_bench[counter],
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], **other))
@@ -3106,7 +3326,8 @@ def main() -> None:
                         launches_model_zoo=launches_model_zoo[counter],
                         launches_serve=launches_serve[counter],
                         launches_parallel=launches_parallel[counter],
-                        launches_native_staging=launches_native[counter], **stager))
+                        launches_native_staging=launches_native[counter],
+                        launches_bench=launches_bench[counter], **stager))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)

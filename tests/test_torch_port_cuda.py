@@ -518,16 +518,19 @@ def _k5_args(device, b, c, n, h, w, dtype=torch.bfloat16):
     return x, wt, scale, bias
 
 
+@pytest.mark.parametrize("b", [2, 1])
 @pytest.mark.parametrize("c,n,h,w", sorted(set(YOLOV7_640_FUSED_TAILS)))
-def test_fused_conv_wgmma_form_at_main_path_shapes(cuda, c, n, h, w):
-    """Each distinct shape of yolov7 @640's fused tails at batch 2: the
-    wgmma + TMA form, within one bf16 ulp of the plain version, and
-    bit-equal when run again."""
-    args = _k5_args(cuda, 2, c, n, h, w)
+def test_fused_conv_wgmma_form_at_main_path_shapes(cuda, c, n, h, w, b):
+    """Each distinct shape of yolov7 @640's fused tails at batch 2, and at
+    batch 1 (the bench's single-image fused-tail request): the wgmma + TMA
+    form, within one bf16 ulp of the plain version, and bit-equal when run
+    again."""
+    args = _k5_args(cuda, b, c, n, h, w)
     assert form_for(args[0], args[1]) == "wgmma"
     got = fused_pointwise_conv_cuda(*args)
     again = fused_pointwise_conv_cuda(*args)
     torch.cuda.synchronize()
+    assert got.shape == (b, n, h, w)
     torch.testing.assert_close(got.float(), fused_pointwise_conv_plain(*args).float(),
                                rtol=8e-3, atol=1e-3)
     assert torch.equal(got, again)
@@ -1162,3 +1165,53 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
         np.testing.assert_allclose(float(got["metrics"][k]), float(metrics[k]), rtol=1e-4,
                                    err_msg=k)
     assert TD._rel_l2(got["state"]["model"], state["model"].state_dict()) < 1e-4
+
+
+# --------------------------------------------------------------------------- batch 1, the bench's
+# single-image requests (yolo_continuous_tpu_torch/bench.py): K3 on the three
+# 640 px levels of a bf16 head (cast to fp32, as the decode does), K1 at
+# 300 x 1 through nms_single (K5 at batch 1: test_fused_conv_wgmma_form_at_main_path_shapes)
+
+@pytest.mark.parametrize("normalized", [True, False])
+def test_decode_tma_form_on_a_bf16_head_at_batch_one(cuda, normalized):
+    """yolov7 @640's three levels at batch 1, 80 classes, from bf16 head maps
+    cast to fp32 as ``decode_outputs`` casts them: one TMA launch, equal to
+    the strided form and to the plain version."""
+    rs = np.random.RandomState(7)
+    maps = [m.to(torch.bfloat16).float()
+            for m in _nchw_views([(rs.randn(1, n, n, 3, 85) * 3).astype(np.float32)
+                                  for n in (20, 40, 80)], cuda)]
+    got, strided, want = _decode_both_forms(maps, normalized, ANCHORS, (32, 16, 8))
+    assert got.shape == want.shape == (1, 25200, 85)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, strided)
+
+
+def test_bench_nms_single_on_the_card_matches_the_cpu(cuda):
+    """``nms_single`` of the bench's first 25,200 x 85 draw: K1 at 300 x 1 on
+    the card gives the CPU's (plain) detections exactly."""
+    from yolo_continuous_tpu_torch import bench
+    from yolo_continuous_tpu_torch.ops.nms import nms_single
+    p = torch.from_numpy(bench.infer_inputs(1, 64)[2][0])
+    before = nms_suppress.launches
+    got = nms_single(p.to(cuda), 0.25, 0.45, 300)
+    torch.cuda.synchronize()
+    assert nms_suppress.launches == before + 1
+    for g, w in zip(got, nms_single(p, 0.25, 0.45, 300)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_bench_sections_run_on_the_card(cuda, capsys):
+    """The bench's train and infer sections on the card (yolov7-tiny @64,
+    batch 2): a positive rate and every key of the JAX bench > 0."""
+    import json
+    import math
+    from yolo_continuous_tpu_torch import bench
+    tiny = {"model_cfg": "cfg/net/yolov7-tiny.yaml"}
+    assert bench.bench_train(2, size=64, iters=2, extra_cfg=tiny, device="cuda") > 0
+    bench.section_infer(batch=2, size=64, iters=2, extras=("fused_tails", "int8"), device="cuda",
+                        extra_cfg=tiny)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(line) == sorted(("infer_img_s", "infer_1_ms", "nms_p50_ms",
+                                   "infer_1_ms_fused_tails", "infer_img_s_int8"))
+    assert all(math.isfinite(v) and v > 0 for v in line.values())
