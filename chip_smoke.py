@@ -42,7 +42,15 @@ failure exits non-zero before the result line.
    ``suppress`` device time) and a short
    profiler window; the default and fused-tail paths also the host's
    enqueue time. Then the three paths' forward and request times, measured
-   in turns.
+   in turns. Requests are the captured request (``Detector.__call__``
+   replays one CUDA graph per key and shape, ``utils/capture.py``); each
+   path's routes (bs 16, bs 1 but IBin, and max_det 4096 with K2 in the
+   graph) are held bit-equal to the eager request (``infer_eager``) in the
+   same process, eager first to itself (``replay_equal``). Last, for the
+   default and fused-tail paths at bs 16 and 1, captured against eager
+   (``captured_vs_eager``): request ms in 10 alternating turns (median,
+   min, max), host ms a call, device ms, kernels and host launches a
+   request (profiler), first-call ms, warm-up and capture ms, pool memory.
 5. train: the train step (``train/train_loop.Trainer.train_step``: forward,
    SimOTA loss, backward, 3-group SGD-Nesterov, EMA) of yolov7 @640
    (``cfg/coco_train.yaml``, 80 classes) at batch 16, max_boxes 64, bf16
@@ -97,8 +105,12 @@ failure exits non-zero before the result line.
    (its maps cast to fp32 keep the TMA form), the request time, and the
    keep-set entries that differ from the fp32 head. (reload)
    ``reload_weights`` on a running Detector, with and without ``fuse``: the
-   next request equals a fresh Detector on the same checkpoint bit for bit;
-   a missing path returns False. (zoo) every chained group of the zoo's rows
+   reload drops the captured request, and the next replay equals a fresh
+   Detector's replay and its eager request on the same checkpoint bit for
+   bit; a missing path returns False. The p6_lite, ibin_train, fuse, fuse
+   + fused_tails and head_bf16 (bs 16 and 1) requests are each held
+   bit-equal to their eager request (``replay_equal``). (zoo) every
+   chained group of the zoo's rows
    (the groups of ``tests/_torch_port.py``), the multi-input and repeat nets
    and YoloBody 'l' and 'x' at 64 px on the card against the CPU in fp32
    (maps within 1e-4); one timed forward of YoloBody 'x' at 640, batch 16,
@@ -114,8 +126,11 @@ failure exits non-zero before the result line.
    ``make_multi_server`` (batch 16, max_wait 5 ms, conf 0.25, IoU 0.45,
    max_det 100) as two models: ``bf16`` and ``int8``
    (``Detector(quantize=True)`` calibrated on 16 synthetic 640 px images).
-   Direct calls first: int8 against bf16 request ms in 10 alternating
-   turns, device ms a batch, peak memory, launches (profiler), quantized
+   The int8 request replayed bit-equal to eager after ``calibrate``, after
+   ``load_quant_state`` of other scales (which it then serves) and after
+   loading the calibrated ones back. Direct calls first: int8 against bf16
+   request ms in 10 alternating turns, device ms a batch, peak memory,
+   launches (profiler), quantized
    Convs and the share of bf16's kept detections that int8 keeps. Then a
    child process (its own interpreter) runs 64 client threads: 256 JPEGs
    of 640 x 480 and 480 x 640 a model (every 32nd urgent), one 32-frame
@@ -209,6 +224,14 @@ failure exits non-zero before the result line.
 Kernel times are device times: ``cuda_ms`` holds the stream with a sleep
 kernel while the host enqueues the timed calls, so that a kernel shorter
 than its wrapper's host time is not timed at the host's pace.
+
+Launch counts under replay: a wrapper's ``.launches`` counter moves where it
+launches its kernel outside a graph; inside a captured request the launch
+goes into the capture's record (``utils/capture.CapturedCall.launches``),
+and each replay adds that record to the counters. Every count below (the
+exact K3, K4, K5 checks of phases 3-11 and the ``launches_*`` keys of the
+kernels line) is thus the captured launches times the replays plus the
+launches outside a graph; a capture's warm-up counts nowhere.
 
 Before the last line it prints the ``kernels`` JSON line (time, bound,
 error of each kernel; ``launches`` on phase 4's main paths,
@@ -871,7 +894,7 @@ def drive_path(label, det, images, max_dets):
     """One main path: counters to 0, ``len(max_dets)`` requests, counters
     read; outputs checked. Returns the launches of each kernel."""
     import torch
-    det(images, CONF, IOU, 300)          # warm cuDNN before the counted run
+    det(images, CONF, IOU, 300)          # captures the request (and warms cuDNN) uncounted
     torch.cuda.synchronize()
     for fn in counters():
         fn.launches = 0
@@ -910,6 +933,85 @@ def stage_times(det, images, decode):
     return stages
 
 
+def differing(got, want) -> list:
+    """The names of the request outputs that are not bit-equal."""
+    import torch
+    return [name for name, g, w in zip(("boxes", "scores", "classes", "valid"), got, want)
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w)]
+
+
+def replay_equal(label, det, x, conf=CONF, max_det=300) -> dict:
+    """The captured request (``Detector.__call__``) against the eager one
+    (``Detector.infer_eager``) on the same CUDA input, in this process: eager
+    must be bit-equal to eager, then a first call (warm-up, capture and a
+    replay) and a second replay bit-equal to eager, all four outputs. Fails
+    on any difference. Returns the first call's host ms and the capture's
+    record: warm-up and capture ms, pool memory, launches a replay."""
+    import torch
+    with torch.inference_mode():
+        want = det.infer_eager(x, conf, IOU, max_det)
+        diff = differing(det.infer_eager(x, conf, IOU, max_det), want)
+        if diff:
+            fail(f"{label}: the eager request is not bit-equal to itself in {diff}")
+        det._drop_graphs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = det(x, conf, IOU, max_det)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        second = det(x, conf, IOU, max_det)
+        torch.cuda.synchronize()
+    for which, got in (("first call", first), ("replay", second)):
+        diff = differing(got, want)
+        if diff:
+            fail(f"{label}: the captured request's {which} differs from the eager request "
+                 f"in {diff}")
+    call = det._infer[(tuple(x.shape), x.dtype)]
+    return dict(bit_equal_to_eager=True, first_call_ms=first_ms, warmup_ms=call.warmup_ms,
+                capture_ms=call.capture_ms, pool_gb=call.pool_bytes / 2 ** 30,
+                launches_per_replay=call.launches, kept=int(want[3].sum()))
+
+
+REPLAY_TURNS = 10
+
+
+def captured_vs_eager(label, det, x) -> dict:
+    """One route at one batch, captured against eager: the bit-equal check
+    and first-call cost (``replay_equal``); request ms in REPLAY_TURNS
+    alternating turns (CUDA events around 5 calls at the host's pace: median,
+    min, max); host ms a call (the clock around the call, without waiting for
+    the card; median of the turns); device ms (the stream held while the host
+    enqueues); and from a profiler window of 3 calls, the device's kernel
+    time and kernels a request, and the launches the host makes a request:
+    graph launches plus kernels, copies and fills enqueued outside a graph."""
+    import torch
+    rec = replay_equal(label, det, x)
+    fns = {"captured": lambda: det(x, CONF, IOU, 300),
+           "eager": lambda: det.infer_eager(x, CONF, IOU, 300)}
+    ms = {k: [] for k in fns}
+    host = {k: [] for k in fns}
+    with torch.inference_mode():
+        for t in range(REPLAY_TURNS):
+            for k in (list(fns) if t % 2 == 0 else list(fns)[::-1]):
+                ms[k].append(cuda_ms(fns[k], iters=5, warmup=1, hold=False))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[k]()
+                host[k].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+        device = {k: cuda_ms(fn, iters=10, warmup=2) for k, fn in fns.items()}
+    for k, fn in fns.items():
+        prof = profile_window(fn, calls=3)
+        rec[k] = dict(request_ms=dict(median=float(np.median(ms[k])), min=min(ms[k]),
+                                      max=max(ms[k]), turns=ms[k]),
+                      host_ms=float(np.median(host[k])), device_ms=device[k],
+                      profile_kernel_ms=prof.get("device_ms"),
+                      kernels_per_request=prof.get("launches_per_call"),
+                      host_launches_per_request=prof.get("host_launches_per_call"),
+                      host_launches_by_call=prof.get("host_launches_by_call"))
+    return rec
+
+
 def phase_main():
     """The main paths at full width, with launch counts and stage times."""
     import torch
@@ -946,6 +1048,16 @@ def phase_main():
                      f"({len(max_dets)} requests)")
         for name, n in launches.items():
             total[name] += n
+        # every route of the path: the captured request bit-equal to the eager one
+        routes = {f"bs {BS}": replay_equal(f"{label} bs {BS}", det, images)}
+        if label != "ibin":
+            routes["bs 1"] = replay_equal(f"{label} bs 1", det, images[:1])
+        if label == "default":       # K2 inside the graph
+            routes[f"bs {BS} max_det 4096"] = replay_equal(f"{label} max_det 4096", det, images,
+                                                           max_det=4096)
+            if "nms_suppress_tiled" not in routes[f"bs {BS} max_det 4096"]["launches_per_replay"]:
+                fail("default path: the max_det 4096 graph holds no K2 launch")
+        print(json.dumps({"replay_routes": dict(path=label, **routes)}), flush=True)
 
         spec = det.spec
         with torch.inference_mode():
@@ -999,7 +1111,18 @@ def phase_main():
         label: dict(median_forward_ms=float(np.median(t["forward_ms"])),
                     median_total_ms=float(np.median(t["total_ms"])), **t)
         for label, t in turns.items()}}), flush=True)
+
+    # the captured request against the eager one, where the bench times them
+    for label in ("default", "fused_tails"):
+        for bs in (BS, 1):
+            rec = captured_vs_eager(f"{label} bs {bs}", dets[label], images[:bs])
+            print(json.dumps({"captured_vs_eager": dict(path=label, batch=bs, **rec)}),
+                  flush=True)
     return total, img_s["default"]
+
+
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def profile_window(fn, calls: int = 3, grad: bool = False) -> dict:
@@ -1026,9 +1149,14 @@ def profile_window(fn, calls: int = 3, grad: bool = False) -> dict:
     device_ms = sum(ms for _, ms in rows)
     if device_ms == 0:
         return {"device_ms": "not measured: the profiler saw no device time"}
+    # the host's side: the runtime calls that put work on a stream, a graph
+    # launch counting once for all its kernels
+    host = {e.key: e.count / calls for e in prof.key_averages()
+            if e.key.startswith(HOST_LAUNCH_CALLS)}
     return {"calls": calls, "wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms, "kernels": len(rows),
             "launches_per_call": sum(e.count for e in events) / calls,
+            "host_launches_per_call": sum(host.values()), "host_launches_by_call": host,
             "top": [[name[:70], ms] for name, ms in rows[:10]]}
 
 
@@ -1587,12 +1715,13 @@ def p6_requests(total) -> dict:
             for k, n in launches.items():
                 total[k] += n
         peak = torch.cuda.max_memory_allocated()
+    replay = replay_equal("p6_lite", det, images)
     stages = stage_times(det, images, lambda m: decode_outputs(m, spec.anchors, spec.strides))
     rec = dict(config=f"cfg/coco_train.yaml yolov7-p6-lite {P6_SIZE}px bf16, P6 anchors",
                head=spec.head_name, strides=list(spec.strides), batch=BS, conf=CONF, iou=IOU,
                max_det=300, requests_counted=3, kept_per_image=float(out[3].sum()) / BS,
                max_memory_allocated_gb=peak / 2 ** 30, k3_ms=k3["ms"],
-               k3_bound_ms=k3["bound_ms"], **stages)
+               k3_bound_ms=k3["bound_ms"], replay=replay, **stages)
     print(json.dumps({"p6_lite_requests": rec}), flush=True)
     del det, images
     torch.cuda.empty_cache()
@@ -1655,7 +1784,8 @@ def ibin_train(total) -> dict:
         total[k] += n
     rec = dict(config="cfg/coco_train.yaml yolov7-IBin 640px bf16 body", batch=BS,
                max_boxes=64, served_from="EMA", request_conf=IBIN_CONF, request_launches=launches,
-               kept_per_image=float(out[3].sum()) / BS, **rec)
+               kept_per_image=float(out[3].sum()) / BS,
+               replay=replay_equal("ibin_train request", det, images, conf=IBIN_CONF), **rec)
     print(json.dumps({"ibin_train_step": rec}), flush=True)
     del trainer, state, det, inputs
     torch.cuda.empty_cache()
@@ -1746,7 +1876,9 @@ def fuse_and_head(total, images) -> dict:
                 d = dets[k]
                 turns[k].append(cuda_ms(lambda: d(images, CONF, IOU, 300), iters=10, warmup=2,
                                         hold=False))
+    replays = {"fuse": replay_equal("fuse bf16", dets["fused"], images)}
     tails = Detector(plan, device="cuda", state_dict=sd, fuse=True, fused_tails=True)
+    replays["fuse + fused_tails"] = replay_equal("fuse + fused_tails", tails, images)
     with torch.inference_mode():
         tails(images, CONF, IOU, 300)
         out, launches = counted("fuse + fused_tails", lambda: [tails(images, CONF, IOU, 300)
@@ -1759,7 +1891,7 @@ def fuse_and_head(total, images) -> dict:
     fuse_rec = dict(config="cfg/coco_train.yaml yolov7 640px", batch=BS, fp32=fp32,
                     bf16_request_ms={k: dict(median=float(np.median(v)), turns=v)
                                      for k, v in turns.items()},
-                    fused_tails_launches_3_requests=launches)
+                    fused_tails_launches_3_requests=launches, replay=replays)
     print(json.dumps({"fuse": fuse_rec}), flush=True)
     del dets, tails
 
@@ -1780,8 +1912,10 @@ def fuse_and_head(total, images) -> dict:
     check_request("head_bf16", out16[-1], head16.spec.nc, BS)
     for k, n in launches.items():
         total[k] += n
+    replays = {f"bs {bs}": replay_equal(f"head_bf16 bs {bs}", head16, images[:bs])
+               for bs in (BS, 1)}
     v16, v32 = out16[-1][3], out32[3]
-    head_rec = dict(request_ms=ms, launches_3_requests=launches,
+    head_rec = dict(request_ms=ms, launches_3_requests=launches, replay=replays,
                     keep_set_entries_differing=keep_set_difference(out16[-1], out32),
                     kept_bf16=int(v16.sum()), kept_fp32=int(v32.sum()))
     print(json.dumps({"head_bf16": head_rec}), flush=True)
@@ -1818,11 +1952,18 @@ def reload_check(images) -> dict:
                 fail(f"reload (fuse={fuse}): a failed reload changed the weights")
             if det.reload_weights(saved.save_path) is not True:
                 fail(f"reload (fuse={fuse}): the saved checkpoint did not load")
+            if det._infer:
+                fail(f"reload (fuse={fuse}): the reload kept a captured request")
             got = det(images, CONF, IOU, 300)
-            want = Detector(saved, device="cuda", fuse=fuse)(images, CONF, IOU, 300)
-        if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            fail(f"reload (fuse={fuse}): the next request differs from a fresh Detector's")
-        rec[f"fuse={fuse}"] = dict(bit_equal_to_fresh=True, kept=int(got[3].sum()),
+            fresh = Detector(saved, device="cuda", fuse=fuse)
+            want, eager = fresh(images, CONF, IOU, 300), fresh.infer_eager(images, CONF, IOU, 300)
+        for what, ref in (("fresh Detector's replay", want), ("fresh Detector's eager request",
+                                                                eager)):
+            if differing(got, ref):
+                fail(f"reload (fuse={fuse}): the replay after the reload differs from a "
+                     f"{what} in {differing(got, ref)}")
+        rec[f"fuse={fuse}"] = dict(bit_equal_to_fresh=True, bit_equal_to_fresh_eager=True,
+                                   kept=int(got[3].sum()),
                                    changed=not torch.equal(got[1], before[1]))
     print(json.dumps({"reload": rec}), flush=True)
     return rec
@@ -1982,6 +2123,31 @@ def int8_detector_on_card() -> dict:
                                                   for c, g in zip(maps_c, maps_g)),
                 tol_rel_l2=INT8_REL_L2, valid=int(valid.sum()), kept=int(keep.sum()),
                 quantized_convs=len(gpu.model.quant_convs()))
+
+
+def int8_replays(det, x) -> dict:
+    """The int8 request captured against eager after ``calibrate``; after
+    ``load_quant_state`` of scales 1.25x as large (the graph is dropped, and
+    the replay serves the new scales: other detections); and after loading
+    the calibrated scales back (the replay equals the first again)."""
+    import torch
+    calibrated = det.model.quant_state()
+    rec = {"after calibrate": replay_equal("int8 after calibrate", det, x, max_det=SERVE_MAX_DET)}
+    with torch.inference_mode():
+        first = det(x, CONF, IOU, SERVE_MAX_DET)
+    det.load_quant_state({k: v * 1.25 for k, v in calibrated.items()})
+    if det._infer:
+        fail("int8: load_quant_state kept a captured request")
+    rec["after load_quant_state x1.25"] = replay_equal("int8 after load_quant_state", det, x,
+                                                       max_det=SERVE_MAX_DET)
+    with torch.inference_mode():
+        scaled = det(x, CONF, IOU, SERVE_MAX_DET)
+        det.load_quant_state(calibrated)
+        back = det(x, CONF, IOU, SERVE_MAX_DET)
+    if not differing(scaled, first) or differing(back, first):
+        fail("int8: the replay after load_quant_state did not serve the scales loaded")
+    rec["int8_route_calls_per_replay"] = det._infer[(tuple(x.shape), x.dtype)].launches
+    return rec
 
 
 def serve_images(n: int = 16):
@@ -2278,6 +2444,7 @@ def phase_serve():
     t0 = time.perf_counter()
     dets["int8"].calibrate(x)                        # 16 synthetic 640 px images
     rec["calibrate_s"] = time.perf_counter() - t0
+    rec["replay"] = int8_replays(dets["int8"], x)
     rec["direct"] = direct_measurements(dets, x)
     print(json.dumps({"serve_direct": rec["direct"]}), flush=True)
 
@@ -2374,7 +2541,8 @@ def phase_serve():
     rec.update(serving=per_model, traffic=traffic, launches_serve=launches,
                phase_s=time.perf_counter() - t_phase)
     print(json.dumps({"serve": {k: rec[k] for k in ("serving", "traffic", "launches_serve",
-                                                      "watcher", "calibrate_s", "phase_s")}}),
+                                                      "watcher", "calibrate_s", "replay",
+                                                      "phase_s")}}),
           flush=True)
     del dets, srv
     torch.cuda.empty_cache()

@@ -1215,3 +1215,225 @@ def test_bench_sections_run_on_the_card(cuda, capsys):
     assert sorted(line) == sorted(("infer_img_s", "infer_1_ms", "nms_p50_ms",
                                    "infer_1_ms_fused_tails", "infer_img_s_int8"))
     assert all(math.isfinite(v) and v > 0 for v in line.values())
+
+
+# ---------------------------------------------------------------------------
+# the captured request (utils/capture.py): Detector.__call__ replays one CUDA
+# graph per (conf, nms, max_det) and input shape; every route bit-equal to
+# the eager request (Detector.infer_eager) in the same process
+
+def _yolov7_plan(size, model_cfg="cfg/net/yolov7.yaml", save_path="/nonexistent/x.msgpack"):
+    plan = TrainPlan("cfg/chip_tiny.yaml")
+    plan.model_cfg, plan.image_size, plan.save_path = model_cfg, size, save_path
+    return plan
+
+
+def _bit_equal(got, want, what):
+    for name, g, w in zip(("boxes", "scores", "classes", "valid"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, f"{what}: {name}"
+        assert torch.equal(g, w), f"{what}: {name} differs"
+
+
+def _replay_matches_eager(det, x, key, kernels=()):
+    """Eager twice (bit-equal: the oracle is deterministic), then two calls
+    of ``det`` (the first captures): both bit-equal to eager; the graph
+    recorded each kernel of ``kernels`` and the counters moved by its record
+    once a replay. Returns the ``CapturedCall``."""
+    want = det.infer_eager(x, *key)
+    _bit_equal(det.infer_eager(x, *key), want, "eager against eager")
+    before = {fn: fn.launches for fn in (decode_outputs_cuda, decode_outputs_bin_cuda,
+                                         nms_suppress, nms_suppress_tiled,
+                                         fused_pointwise_conv_cuda)}
+    got = [det(x, *key), det(x, *key)]
+    torch.cuda.synchronize()
+    for g in got:
+        _bit_equal(g, want, "replay against eager")
+    call = det._infer[(tuple(x.shape), x.dtype)]
+    assert len(det._infer) == 1 and det._infer_key == key
+    for name in kernels:
+        assert call.launches.get(name, 0) > 0, f"{name} not in the graph: {call.launches}"
+    for fn, n in before.items():
+        assert fn.launches - n == 2 * call.launches.get(fn.__name__, 0), fn.__name__
+    return call
+
+
+KEY = (0.01, 0.45, 300)
+CAPTURE_ROUTES = {
+    # route: (plan, Detector keywords, batch sizes, kernels in the graph)
+    "detect": (lambda: _yolov7_plan(64), {}, (2, 1), ("decode_outputs_cuda", "nms_suppress")),
+    "detect_head_bf16": (lambda: _yolov7_plan(64), dict(head_dtype=torch.bfloat16), (2, 1),
+                         ("decode_outputs_cuda", "nms_suppress")),
+    "ibin": (lambda: TrainPlan(tiny_plan_cfg("IBin", 64)), {}, (2,),
+             ("decode_outputs_bin_cuda", "nms_suppress")),
+    "iaux": (lambda: TrainPlan(tiny_plan_cfg("IAuxDetect", 64)), {}, (2,),
+             ("decode_outputs_cuda", "nms_suppress")),
+    "fused_tails": (lambda: _yolov7_plan(64), dict(fused_tails=True), (2, 1),
+                    ("fused_pointwise_conv_cuda", "decode_outputs_cuda", "nms_suppress")),
+    "fuse": (_fuse_plan, dict(fuse=True), (2,), ("decode_outputs_cuda", "nms_suppress")),
+    "p6_lite": (lambda: _p6_plan(128), {}, (2,), ("decode_outputs_cuda", "nms_suppress")),
+}
+
+
+@pytest.mark.parametrize("route", sorted(CAPTURE_ROUTES))
+def test_captured_request_is_bit_equal_to_eager(cuda, route):
+    make_plan, kw, batches, kernels = CAPTURE_ROUTES[route]
+    plan = make_plan()
+    base = Detector(plan, device="cpu", seed=0, fuse=False)
+    sd = spread_weights(base.model, 2).state_dict()
+    det = Detector(plan, device="cuda", state_dict=sd, **kw)
+    for bs in batches:
+        x = torch.from_numpy(np.random.RandomState(bs).rand(
+            bs, plan.image_size, plan.image_size, 3).astype(np.float32)).to(cuda)
+        call = _replay_matches_eager(det, x, KEY, kernels)
+        if route == "fused_tails":
+            assert call.launches["fused_pointwise_conv_cuda"] == 24
+        det._drop_graphs()
+
+
+def test_captured_request_takes_k2_at_max_det_4096(cuda):
+    """160 px gives 1575 candidates an image: K = 1575 > 1024 takes K2's two
+    launches inside the graph."""
+    det = Detector(_yolov7_plan(160), device="cuda", seed=0)
+    spread_weights(det.model, 2)
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 160, 160, 3).astype(np.float32)).cuda()
+    call = _replay_matches_eager(det, x, (0.0, 0.45, 4096), ("nms_suppress_tiled",))
+    assert "nms_suppress" not in call.launches
+
+
+def _int8_detector():
+    plan = TrainPlan(tiny_plan_cfg("Detect", 64))
+    plan.model_cfg = "cfg/net/yolov7-tiny.yaml"
+    sd = spread_weights(Detector(plan, device="cpu", seed=1).model, 1).state_dict()
+    return Detector(plan, device="cuda", quantize=True, state_dict=sd)
+
+
+def test_captured_int8_request_after_calibrate_and_after_load_quant_state(cuda):
+    """int8: replay bit-equal to eager after ``calibrate``; ``load_quant_state``
+    drops the graph and the next replay serves the new scales, bit-equal to
+    eager with them."""
+    from yolo_continuous_tpu_torch.nn import quant as Q
+    det = _int8_detector()
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)).cuda()
+    det.calibrate(x)
+    Q.route_calls.clear()
+    call = _replay_matches_eager(det, x, KEY, ("decode_outputs_cuda", "nms_suppress"))
+    assert call.launches.get("route gemm", 0) > 0       # two eager requests, two replays
+    assert Q.route_calls["gemm"] == 4 * call.launches["route gemm"]
+    before = det(x, *KEY)
+    det.load_quant_state({k: v * 1.5 for k, v in det.model.quant_state().items()})
+    assert det._infer == {}
+    after = _replay_matches_eager(det, x, KEY)
+    assert after is not call
+    assert not torch.equal(det(x, *KEY)[0], before[0])
+
+
+def test_reload_weights_between_two_replays(cuda, tmp_path):
+    """A replay, ``reload_weights`` of other weights, a replay: the second
+    equals a fresh Detector on that checkpoint bit for bit."""
+    import os
+    plan = _yolov7_plan(64, save_path=str(tmp_path / "w.msgpack"))
+    det = Detector(plan, device="cuda", seed=0)
+    spread_weights(det.model, 2)
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)).cuda()
+    first = det(x, *KEY)
+    sd = spread_weights(Detector(plan, device="cpu", seed=0).model, 5).state_dict()
+    torch.save(sd, os.path.splitext(plan.save_path)[0] + ".pth")
+    assert det.reload_weights() is True and det._infer == {}
+    second = det(x, *KEY)
+    fresh = Detector(plan, device="cuda")
+    _bit_equal(second, fresh.infer_eager(x, *KEY), "replay after reload against a fresh eager")
+    _bit_equal(second, fresh(x, *KEY), "replay after reload against a fresh replay")
+    assert not torch.equal(first[1], second[1])
+
+
+def test_a_failed_capture_raises_and_runs_nothing_eagerly(cuda, monkeypatch):
+    """A host sync inside the captured function (here a ``.item()`` slipped
+    into ``top_candidates``) fails the capture: ``CaptureError`` names the
+    stage and the kernels recorded until then; no graph is kept, no counter
+    moves and nothing is returned."""
+    from yolo_continuous_tpu_torch.ops import nms as nms_ops
+    from yolo_continuous_tpu_torch.utils.capture import CapturedCall, CaptureError
+    with pytest.raises(CaptureError, match="capture failed"):
+        CapturedCall(lambda x: x * float(x.sum().item()), torch.ones(4, device=cuda))
+    det = Detector(_yolov7_plan(64), device="cuda", seed=0)
+    real = nms_ops.top_candidates
+
+    def syncing(pred, conf, k):
+        out = real(pred, conf, k)
+        float(out[1].sum().item())
+        return out
+    monkeypatch.setattr(nms_ops, "top_candidates", syncing)
+    x = torch.zeros(2, 64, 64, 3, device=cuda)
+    n3 = decode_outputs_cuda.launches
+    with pytest.raises(CaptureError, match="capture failed after recording decode_outputs_cuda"):
+        det(x, *KEY)
+    torch.cuda.synchronize()
+    assert det._infer == {} and decode_outputs_cuda.launches == n3
+    monkeypatch.setattr(nms_ops, "top_candidates", real)
+    _replay_matches_eager(det, x, KEY, ("decode_outputs_cuda", "nms_suppress"))
+
+
+def test_capture_while_another_thread_works_on_its_own_stream(cuda):
+    """A thread allocating, copying from pinned memory and multiplying on its
+    own stream through the whole capture (as the train loader stages while
+    ``validate_map`` captures): the capture succeeds (thread-local mode) and
+    replays bit-equal to eager; the thread's results stay right."""
+    import threading
+    det = Detector(_yolov7_plan(64), device="cuda", seed=0)
+    spread_weights(det.model, 2)
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)).cuda()
+    stop, errors, rounds = threading.Event(), [], [0]
+
+    def work():
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                while not stop.is_set():
+                    host = torch.full((256, 256), 2.0).pin_memory()
+                    a = host.to(cuda, non_blocking=True)
+                    b = torch.empty(256, 256, device=cuda).fill_(0.5)
+                    if float((a @ b)[0, 0]) != 256.0:
+                        errors.append("wrong product")
+                    rounds[0] += 1
+        except Exception as e:          # reported by the test below
+            errors.append(repr(e))
+
+    t = threading.Thread(target=work)
+    t.start()
+    try:
+        while rounds[0] == 0 and not errors:
+            pass
+        _replay_matches_eager(det, x, KEY, ("decode_outputs_cuda", "nms_suppress"))
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and not errors and rounds[0] > 0
+
+
+def test_captured_outputs_are_fresh_and_the_pool_goes_with_the_detector(cuda):
+    """Two replays on other images: distinct tensors, the first left as it
+    was; dropping the Detector gives its graph's memory back (measured after
+    a first capture, which sets up what a process keeps: handles and
+    workspaces of the capture stream)."""
+    import gc
+    rs = np.random.RandomState(0)
+    a, b = (torch.from_numpy(rs.rand(2, 64, 64, 3).astype(np.float32)).cuda() for _ in range(2))
+    Detector(_yolov7_plan(64), device="cuda", seed=0)(a, *KEY)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    det = Detector(_yolov7_plan(64), device="cuda", seed=0)
+    spread_weights(det.model, 2)
+    first = det(a, *KEY)
+    kept = [t.clone() for t in first]
+    second = det(b, *KEY)
+    torch.cuda.synchronize()
+    _bit_equal(first, kept, "the first result after a second call")
+    _bit_equal(second, det.infer_eager(b, *KEY), "the second call")
+    assert all(t1.data_ptr() != t2.data_ptr() for t1, t2 in zip(first, second))
+    call = det._infer[(tuple(a.shape), a.dtype)]
+    assert call.pool_bytes > 0 and call.capture_ms > 0
+    del det, call, first, second, kept
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base

@@ -11,6 +11,12 @@ Runs on ``cuda`` by default and raises if there is no CUDA device; pass
 ``device="cpu"`` for the plain CPU path (the tests do). ``quantize=True``
 serves the Conv body in int8 (``nn/quant.py``) after ``calibrate``.
 
+On CUDA a request is one captured CUDA graph (``utils/capture.py``), as it
+is one compiled program in JAX (``Detector._build_infer``,
+``detect_api.py:220-255``): ``Detector.__call__`` replays one graph per
+``(conf_thres, nms_thres, max_det)`` and input shape. ``infer_eager`` is the
+same request op by op, the CPU route and the tests' oracle.
+
 Deliberate fix kept from the JAX package: prediction runs on RGB, as
 training does (the reference predicts on cv2's BGR, ``detect.py:23``).
 """
@@ -34,6 +40,7 @@ from .tools.jax_weights import state_dict_from_jax
 from .tools.torch_import import load_torch_checkpoint
 from .train.checkpoint import (jax_weights, load_checkpoint, read_jax_msgpack, serving_state_dict,
                                train_checkpoint_path)
+from .utils.capture import CapturedCall
 
 
 @dataclass
@@ -146,6 +153,14 @@ class Detector:
     matmuls: the fp32 head convolution then keeps fp32 products, as the
     JAX reference does (with a bf16 body its inputs are bf16 values, whose
     products TF32 would also hold exactly; with an fp32 body they are not).
+
+    On CUDA a call replays a captured request (``_build_infer``, a
+    ``utils/capture.CapturedCall`` per input shape and dtype under one
+    ``(conf_thres, nms_thres, max_det)``, as JAX jits ``_build_infer`` per
+    key and caches it per shape). A new key drops every graph, as JAX drops
+    ``_infer``; so do ``swap_weights`` (``reload_weights``), ``calibrate``
+    and ``load_quant_state``, since a graph reads the weights and the int8
+    scales by address. Results are fresh tensors every call.
     """
 
     def __init__(self, plan: TrainPlan, device="cuda", dtype: Optional[torch.dtype] = None,
@@ -184,6 +199,7 @@ class Detector:
         if self.quantize:
             model.set_int8_weights()            # from the fp32 weights, before the cast
         self.model = model.set_dtype(self.dtype, head_dtype=self.head_dtype)
+        self._drop_graphs()
 
     def _served(self, state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """A train-form state dict -> the served model's: checked against the
@@ -208,6 +224,7 @@ class Detector:
         """Load ``read_weights``'s state dict in place (and, with
         ``quantize``, derive the int8 weights from its fp32 values); the
         activation scales stay."""
+        self._drop_graphs()
         self.model.load_state_dict(served, strict=True)
         if self.quantize:
             self.model.set_int8_weights(served)
@@ -237,6 +254,7 @@ class Detector:
         unused there too: every batch given is used."""
         if not self.quantize:
             raise RuntimeError("calibrate() requires Detector(quantize=True)")
+        self._drop_graphs()             # the new amax tensors are read by address
         for batch in [images] if hasattr(images, "shape") else list(images):
             self.model.calibrate(self._input(batch))
         self.calibrated = True
@@ -245,23 +263,28 @@ class Detector:
     def load_quant_state(self, state: Dict[str, torch.Tensor]) -> None:
         """Set the activation scales from ``quant_state`` keys (JAX's through
         ``tools/jax_weights.quant_state_from_jax``), in place of calibrating."""
+        self._drop_graphs()
         self.model.load_quant_state(state)
         self.calibrated = True
+
+    def _check_calibrated(self) -> None:
+        if self.quantize and not self.calibrated:
+            raise RuntimeError("Detector(quantize=True) needs calibrate(images) before "
+                               "inference: the int8 path reads the recorded activation scales")
 
     @torch.inference_mode()
     def forward(self, images) -> List[torch.Tensor]:
         """images (bs, H, W, 3) float 0..1 -> raw maps [(bs, h, w, na, no)] in
         ``head_dtype`` (IAuxDetect: the leads only, iaux_detect.py:52)."""
-        if self.quantize and not self.calibrated:
-            raise RuntimeError("Detector(quantize=True) needs calibrate(images) before "
-                               "inference: the int8 path reads the recorded activation scales")
+        self._check_calibrated()
         return self.model(self._input(images))[: self.nl]
 
     @torch.inference_mode()
-    def __call__(self, images, conf_thres: float = 0.5, nms_thres: float = 0.4,
-                 max_det: int = 300):
-        """images (bs, H, W, 3) float 0..1 -> (boxes_xyxy_norm, scores,
-        classes, valid), fixed-shape, on the detector's device."""
+    def infer_eager(self, images, conf_thres: float = 0.5, nms_thres: float = 0.4,
+                    max_det: int = 300):
+        """The request op by op: forward, decode, NMS. ``__call__`` on the
+        CPU; on CUDA the function that ``_build_infer`` captures, and the
+        oracle its replays are held to."""
         maps, spec = self.forward(images), self.spec
         if spec.head_name == "IBin":
             pred = decode_outputs_bin(maps, spec.anchors, spec.strides, spec.bin_count,
@@ -269,6 +292,44 @@ class Detector:
         else:
             pred = decode_outputs(maps, spec.anchors, spec.strides, normalized=True)
         return batched_nms(pred, conf_thres, nms_thres, max_det)
+
+    def _drop_graphs(self) -> None:
+        """Forget every captured request (JAX: ``self._infer = None``)."""
+        self._infer, self._infer_key = {}, None
+
+    def _build_infer(self, conf_thres: float, nms_thres: float, max_det: int):
+        """The request of one key as a function of the input batch, for
+        ``CapturedCall`` to capture (JAX's ``_build_infer``)."""
+        self._check_calibrated()
+
+        def infer(images):
+            return self.infer_eager(images, conf_thres, nms_thres, max_det)
+        return infer
+
+    @torch.inference_mode()
+    def _replay(self, images, conf_thres: float, nms_thres: float, max_det: int):
+        """The captured request: one ``CapturedCall`` per input shape and
+        dtype under the current key, captured at its first call."""
+        key = (conf_thres, nms_thres, max_det)
+        if self._infer_key != key:
+            self._drop_graphs()
+            self._infer_key = key
+        x = torch.as_tensor(images)
+        call = self._infer.get((tuple(x.shape), x.dtype))
+        if call is None:
+            call = CapturedCall(self._build_infer(*key), x.to(self.device))
+            self._infer[(tuple(x.shape), x.dtype)] = call
+        return call(x)
+
+    @torch.inference_mode()
+    def __call__(self, images, conf_thres: float = 0.5, nms_thres: float = 0.4,
+                 max_det: int = 300):
+        """images (bs, H, W, 3) float 0..1 -> (boxes_xyxy_norm, scores,
+        classes, valid), fixed-shape, on the detector's device: on CUDA a
+        replay of the captured request, on the CPU ``infer_eager``."""
+        if self.device.type == "cuda":
+            return self._replay(images, conf_thres, nms_thres, max_det)
+        return self.infer_eager(images, conf_thres, nms_thres, max_det)
 
 
 def predict(cfg_file: str, image_path: str, conf_threshold: float = 0.3,

@@ -20,6 +20,7 @@ from typing import Sequence
 
 import torch
 
+from ..utils.capture import count
 from . import _build
 from .decode import FORMS, check_head_maps, level_table, pack_levels
 from .decode import form_for as _form_for
@@ -66,7 +67,7 @@ def launch_form(preds: Sequence[torch.Tensor], anchors: Sequence, strides: Seque
         err = lib.decode_levels_bin_tma(len(table), *pack_levels(table), out.data_ptr(), bs, no,
                                         out.stride(0), bin_count, int(normalized), stream)
         _build.check(err, "decode_levels_bin_tma")
-        decode_outputs_bin_cuda.launches += int(out.numel() > 0)
+        count(decode_outputs_bin_cuda, int(out.numel() > 0))
         return out
     for p, lv in zip(preds, table):
         anchors_wh = (ctypes.c_float * len(lv.anchors))(*lv.anchors)
@@ -74,7 +75,7 @@ def launch_form(preds: Sequence[torch.Tensor], anchors: Sequence, strides: Seque
                                    *p.stride(), out.stride(0), lv.row0, anchors_wh, bin_count,
                                    int(normalized), lv.stride, stream)
         _build.check(err, "decode_level_bin")
-        decode_outputs_bin_cuda.launches += 1
+        count(decode_outputs_bin_cuda, 1)
     return out
 
 

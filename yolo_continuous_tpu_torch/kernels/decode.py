@@ -28,6 +28,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ..utils.capture import count
 from . import _build
 
 # copies of csrc/decode_tma.cuh's kMaxLevels, kP and kSmemPerBlock
@@ -171,7 +172,7 @@ def launch_form(preds: Sequence[torch.Tensor], anchors: Sequence, strides: Seque
         err = lib.decode_levels_tma(len(table), *pack_levels(table), out.data_ptr(), bs, no,
                                     out.stride(0), int(normalized), stream)
         _build.check(err, "decode_levels_tma")
-        decode_outputs_cuda.launches += int(out.numel() > 0)
+        count(decode_outputs_cuda, int(out.numel() > 0))
         return out
     for p, lv in zip(preds, table):
         anchors_wh = (ctypes.c_float * len(lv.anchors))(*lv.anchors)
@@ -179,7 +180,7 @@ def launch_form(preds: Sequence[torch.Tensor], anchors: Sequence, strides: Seque
                                out.stride(0), lv.row0, anchors_wh, int(normalized), lv.stride,
                                stream)
         _build.check(err, "decode_level")
-        decode_outputs_cuda.launches += 1
+        count(decode_outputs_cuda, 1)
     return out
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.capture import count
 from . import _build
 
 # form -> C entry point of csrc/fused_conv.cu
@@ -89,7 +90,7 @@ def launch_form(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: tor
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
         b, c, n, h * wd, stream)
     _build.check(err, fn)
-    fused_pointwise_conv_cuda.launches += int(out.numel() > 0)
+    count(fused_pointwise_conv_cuda, int(out.numel() > 0))
     return out
 
 

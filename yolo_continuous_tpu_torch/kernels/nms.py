@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.capture import count
 from . import _build
 
 K1_MAX = 1024   # K1 keeps a K x K bitmask in the leader's shared memory: 144 KB at 1024
@@ -129,7 +130,7 @@ def nms_suppress(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor
     sms = torch.cuda.get_device_properties(boxes.device).multi_processor_count
     keep = _launch("nms_suppress", boxes, classes, valid, iou_thres,
                    cluster=cluster_size(boxes.shape[0], boxes.shape[1], sms))
-    nms_suppress.launches += int(boxes.numel() > 0)
+    count(nms_suppress, int(boxes.numel() > 0))
     return keep
 
 
@@ -140,7 +141,7 @@ def nms_suppress_tiled(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.
     _check(boxes, classes, valid, K2_MAX, "nms_suppress_tiled")
     keep = _launch("nms_suppress_tiled", boxes, classes, valid, iou_thres,
                    scratch=tiled_scratch(boxes))
-    nms_suppress_tiled.launches += int(boxes.numel() > 0)
+    count(nms_suppress_tiled, int(boxes.numel() > 0))
     return keep
 
 

@@ -45,10 +45,13 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.capture import count
+
 QMAX = 127
 MAX_K = (2 ** 31 - 1) // (QMAX * QMAX)      # 133,144: the longest sum int32 holds exactly
 IM2COL_BYTES = 1 << 30                      # the int8 im2col of the gemm route, at most
-# calls of each route since the last reset (chip_smoke.py counts a request's)
+# calls of each route since the last reset (chip_smoke.py counts a request's;
+# counted through utils/capture.count, once per replay of a captured call)
 route_calls = collections.Counter()
 
 
@@ -163,7 +166,7 @@ def accumulators_cuda(x: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
             raise ValueError(f"int8 conv: route {route!r} does not take this shape "
                              f"(route_for picks {picked!r})")
         picked = route
-    route_calls[picked] += 1
+    count(route_calls, key=picked)
     if picked == "f64":
         acc = F.conv2d(quantize_input(x, sx).double(), wq.double(), None, stride, padding, 1,
                        groups)

@@ -46,7 +46,8 @@ Deliberate fixes of four faults of the JAX package's server:
 2. A reload reads (and under ``fuse`` re-parameterizes) the checkpoint
    outside the detector lock (``Detector.read_weights``) and holds the lock
    only for the swap (``Detector.swap_weights``), so requests keep being
-   served while a checkpoint loads.
+   served while a checkpoint loads. On CUDA the swap drops the detector's
+   captured request, and the next batch captures it anew under the lock.
 3. An integer priority is clamped to ``PRIORITIES``' range.
 4. A ``/detect`` body is read through ``_BodyReader`` (Content-Length or
    chunked); a body with neither header closes the connection after the

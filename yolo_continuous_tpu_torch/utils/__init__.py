@@ -1,1 +1,1 @@
-"""utils (PyTorch port): ``timing.py``, ``image.py``, ``env.py``."""
+"""utils (PyTorch port): ``timing.py``, ``image.py``, ``env.py``, ``capture.py``."""
