@@ -64,7 +64,16 @@ failure exits non-zero before the result line.
    It also times the step with ``cudnn.deterministic`` (the Trainer's
    setting on CUDA, for exact resume) and without it, in 10 alternating
    turns: device time (the profiler's sum of the step's kernels), which
-   decides its cost, and host wall time. Then one step of yolov7-tiny @128, batch 2, fp32, on the card and on the
+   decides its cost, and host wall time. Then the compiled step
+   (``Trainer.jitted_train_step()``: one captured CUDA graph, whose first
+   call is the warm-up and a real step) against the eager one
+   (``captured_vs_eager_train``): two Trainers from seed 0 over 5 steps of
+   the plan's warm-up ramp (lr_w, lr_b and mom change every step), every
+   loss part and every state tensor bit-equal; the first call's ms, warm-up
+   and capture ms, graph pool, reserved and peak memory; both in 10
+   alternating turns (median, min, max; host ms a step) and under the
+   profiler (kernel ms, kernels and host launches a step); the same for
+   ``jitted_eval_loss()`` against ``eval_loss``. Then one step of yolov7-tiny @128, batch 2, fp32, on the card and on the
    CPU from the same weights: loss parts, ``num_fg``, gradients and updated
    parameters must agree within the CPU parity tests' tolerances
    (``tests/test_torch_port_train.py``).
@@ -73,10 +82,12 @@ failure exits non-zero before the result line.
    (64 train and 16 val images of mixed aspect ratios, 1-8 boxes each, from
    ``RandomState(0)``), batch 16, bf16 body, ``mosaic_prob`` and
    ``mixup_prob`` 0.5 (the stock enhance YAML never mosaics), UD flips from
-   the enhance YAML, ``val_map_every: 1``: 2 epochs with ``device_cache``
-   on, then the plan extended to 3 epochs and resumed from ``.last`` with
-   it off (the prefetch thread staging through the card's stager, as the
-   pool was staged). It prints each epoch's
+   the enhance YAML, ``val_map_every: 1``, 3 epochs: the first 2 with
+   ``device_cache`` on (``stop_after_epoch: 2``), then resumed from
+   ``.last`` for the third with it off (the prefetch thread staging through
+   the card's stager, as the pool was staged); every step through the
+   compiled step. The resumed run's state must equal an uninterrupted
+   3-epoch run's bit for bit. It prints each epoch's
    line and a JSON record (step ms, augment and train-step ms a step by
    CUDA events, the host's data-wait ms of every step, img/s, peak memory,
    mAP), and fails unless every loss is finite, the checkpoints
@@ -159,7 +170,7 @@ failure exits non-zero before the result line.
    alone with and without the perspective. ``EnhancePackage`` with the
    perspective on 16 images of 640 x 480 on the card and on the CPU from the
    same draws: images within 1e-2 on 0..255, boxes and masks bit-equal.
-   (remat) 1 + 5 ``Trainer.train_step`` under no remat, ``bn_remat`` and
+   (remat) 1 + 5 compiled steps (captured) under no remat, ``bn_remat`` and
    ``remat`` full, conv and dots: step ms, peak memory, launches a step;
    the first step's loss parts and running statistics must equal the plain
    step's within rtol 1e-6 (and say whether bit-equal). (mesh)
@@ -1220,6 +1231,123 @@ def deterministic_cost(step, turns: int = 10) -> dict:
                 off_wall_ms=wall[False], turns=turns)
 
 
+def warmup_ramp(plan, n: int) -> list:
+    """Steps 1..n of the plan's warm-up ramp (``LRSchedule`` at COCO's
+    118,287 images an epoch at batch 16): lr_w, lr_b and mom all change
+    every step."""
+    from yolo_continuous_tpu_torch.ops.schedules import LRSchedule
+    sched = LRSchedule(plan.learn_initial, plan.learn_final, plan.epochs, plan.decay,
+                       plan.momentum, plan.warmup, plan.warmup_epochs, plan.warmup_max_iter,
+                       plan.warmup_momentum, plan.warmup_bias_lr, 118287 // BS)
+    return [(h.lr_weights, h.lr_bias, h.momentum) for h in map(sched, range(1, n + 1))]
+
+
+def turns_and_profile(fns: dict, turns: int = REPLAY_TURNS) -> dict:
+    """Each function in ``turns`` alternating turns (one call a turn: the
+    host's clock around the call, which returns once the work is enqueued,
+    and until the card is done), then a profiler window of 2 calls: the
+    device's kernel ms, kernels a call and the host's launches a call."""
+    import torch
+    host = {k: [] for k in fns}
+    wall = {k: [] for k in fns}
+    for t in range(turns):
+        for k in (list(fns) if t % 2 == 0 else list(fns)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            host[k].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            wall[k].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for k, fn in fns.items():
+        prof = profile_window(fn, calls=2, grad=True)
+        if not isinstance(prof.get("device_ms"), float):
+            fail(f"captured vs eager ({k}): {prof}")
+        out[k] = dict(ms=dict(median=float(np.median(wall[k])), min=min(wall[k]),
+                              max=max(wall[k]), turns=wall[k]),
+                      host_ms=dict(median=float(np.median(host[k])), min=min(host[k]),
+                                   max=max(host[k])),
+                      kernel_ms=prof["device_ms"], kernels_per_call=prof["launches_per_call"],
+                      host_launches_per_call=prof["host_launches_per_call"],
+                      host_launches_by_call=prof["host_launches_by_call"],
+                      busy_share=prof["busy_share"])
+    return out
+
+
+def first_call(fn, trainer, kind: str) -> dict:
+    """The first call of a compiled function (host ms until the card is
+    done), with its graph's warm-up and capture ms, pool, and the reserved
+    and peak memory after it."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    (call,) = [g for key, g in trainer._graphs.items() if key[0] == kind]
+    return out, dict(ms=ms, warmup_ms=call.warmup_ms, capture_ms=call.capture_ms,
+                     pool_gib=call.pool_bytes / 2 ** 30,
+                     reserved_gib=torch.cuda.memory_reserved() / 2 ** 30,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def step_captured_vs_eager(plan, inputs) -> dict:
+    """The compiled train step (``Trainer.jitted_train_step()``, one CUDA
+    graph) against the eager one (``train_step``), yolov7 @640, batch 16:
+    two Trainers from seed 0 over 5 steps of the warm-up ramp, every loss
+    part each step and every tensor of the state after held bit-equal; the
+    first call's cost; both steps in alternating turns and under the
+    profiler on the first Trainer. The same for ``jitted_eval_loss()``
+    against ``eval_loss`` (3 replays bit-equal)."""
+    import torch
+    from yolo_continuous_tpu_torch.train.train_loop import Trainer
+    twins = [Trainer(plan, device="cuda") for _ in range(2)]
+    states = [tr.init_state(seed=0) for tr in twins]
+    compiled, ramp = twins[0].jitted_train_step(), warmup_ramp(plan, 5)
+    rec = {"ramp": ramp}
+    for i, hyper in enumerate(ramp):
+        def step():
+            return compiled(states[0], *inputs, *hyper)[1]
+        if i == 0:
+            got, rec["first_call"] = first_call(step, twins[0], "train_step")
+        else:
+            got = step()
+        want = twins[1].train_step(states[1], *inputs, *hyper)[1]
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        if bad:
+            fail(f"captured train step {i}: {bad} differ from the eager step: "
+                 f"{ {k: (float(got[k]), float(want[k])) for k in bad} }")
+    a, b = flat_state(states[0]), flat_state(states[1])
+    bad = [k for k in b if not torch.equal(a[k], b[k])]
+    if bad or set(a) != set(b):
+        fail(f"captured train step: {len(bad)} of {len(b)} state tensors differ from the eager "
+             f"step's after 5 steps, e.g. {bad[:5]}")
+    rec.update(bit_equal_steps=len(ramp), state_tensors=len(b))
+    del twins[1], states[1], a, b
+    torch.cuda.empty_cache()
+    trainer, state = twins[0], states[0]
+    hyper = ramp[-1]
+    rec["train_step"] = turns_and_profile({
+        "captured": lambda: compiled(state, *inputs, *hyper),
+        "eager": lambda: trainer.train_step(state, *inputs, *hyper)})
+    evaluate = trainer.jitted_eval_loss()
+    got, first = first_call(lambda: evaluate(state, *inputs), trainer, "eval_loss")
+    for _ in range(3):
+        want = trainer.eval_loss(state, *inputs)
+        if not torch.equal(got, want):
+            fail(f"captured eval loss {float(got)} differs from eager {float(want)}")
+        got = evaluate(state, *inputs)
+    rec["eval_loss"] = dict(first_call=first, bit_equal_replays=3, **turns_and_profile({
+        "captured": lambda: evaluate(state, *inputs),
+        "eager": lambda: trainer.eval_loss(state, *inputs)}))
+    for key in ("train_step", "eval_loss"):
+        c = rec[key]["captured"]["host_launches_per_call"]
+        if not c < 50:
+            fail(f"captured {key}: {c} host launches a call, not a graph launch and a few copies")
+    return rec
+
+
 def phase_train():
     """The train step of yolov7 @640, batch 16, at full width on the card."""
     import torch
@@ -1278,6 +1406,9 @@ def phase_train():
     del other, loaded, back, before
 
     prof = profile_window(step, calls=2, grad=True)
+    del trainer, state
+    torch.cuda.empty_cache()
+    captured = step_captured_vs_eager(plan, (images, labels, lmask))
     print(json.dumps({"train_step": dict(
         config="cfg/coco_train.yaml yolov7 640px bf16 body, fp32 master weights", batch=BS,
         max_boxes=64, lr_w=hyper[0], lr_b=hyper[1], mom=hyper[2], steps=10,
@@ -1288,7 +1419,7 @@ def phase_train():
         first=parts[0], last=parts[-1],
         num_fg=parts[-1]["num_fg"], moved=moved, checkpoint="bit-equal after load",
         launches_per_step=prof.get("launches_per_call"), profile=prof)}), flush=True)
-    del trainer, state
+    print(json.dumps({"captured_vs_eager_train": captured}), flush=True)
     torch.cuda.empty_cache()
     return BS / float(np.median(step_ms)) * 1e3
 
@@ -1479,12 +1610,13 @@ def phase_train_run() -> dict:
         torch.cuda.reset_peak_memory_stats()
         logs = []
         state = trainer.run(log=lambda line: (logs.append(line), print(line, flush=True)))
+        del trainer.validate_map        # the wrapper refers back to the trainer
         for st in trainer.epoch_stats:
             print(json.dumps({"train_run_epoch": st}), flush=True)
         return trainer, state, logs
 
-    first, state, _ = run(plan_copy(root, "plan_a.yaml", epochs=2, resume="False",
-                                    device_cache="True", **common))
+    first, state, _ = run(plan_copy(root, "plan_a.yaml", epochs=3, stop_after_epoch=2,
+                                    resume="False", device_cache="True", **common))
     if state["step"] != 8:
         fail(f"train_run: {state['step']} steps after 2 epochs of 64 images at batch 16, not 8")
     second, state, logs = run(plan_copy(root, "plan_b.yaml", epochs=3, resume="True",
@@ -1509,6 +1641,22 @@ def phase_train_run() -> dict:
     if len(records) != 3:
         fail(f"train_run: {len(records)} validate_map calls, not one an epoch")
     augment = augment_alone(second, train_ann)
+    del first
+    torch.cuda.empty_cache()
+    # the killed-and-resumed run against an uninterrupted one, bit for bit
+    # (its third epoch from the pool: the pool and the prefetch thread stage
+    # the same batches)
+    straight = Trainer(TrainPlan(plan_copy(root, "plan_c.yaml", epochs=3, resume="False",
+                                           device_cache="True",
+                                           **dict(common, save_name="train_run_straight",
+                                                  val_map_every=0))),
+                       device="cuda").run(log=lambda line: None)
+    a, b = flat_state(straight), flat_state(state)
+    resume_diff = [k for k in a if not torch.equal(a[k], b[k])]
+    if set(a) != set(b) or resume_diff or straight["step"] != state["step"]:
+        fail(f"train_run: the resumed run's state differs from the uninterrupted run's in "
+             f"{len(resume_diff)} of {len(a)} tensors, e.g. {resume_diff[:5]}")
+    del straight, a, b
     print(json.dumps({"train_run": dict(
         config="cfg/coco_train.yaml yolov7 640px bf16 body, batch 16, mosaic_prob 0.5, "
                "mixup_prob 0.5, flip_ud 0.5, 64 train + 16 val JPEGs",
@@ -1520,9 +1668,10 @@ def phase_train_run() -> dict:
                      data_wait_ms_later=float(np.mean(st["data_wait_ms_steps"][1:])))
                 for st in epochs],
         validate_map=records, resumed_at_step=8, augment_alone=augment,
+        resume_bit_equal_to_uninterrupted=True,
         phase_s=time.perf_counter() - t_phase)}), flush=True)
     TRAIN_RUN_EPOCHS[:] = epochs
-    del first, second, state
+    del second, state
     torch.cuda.empty_cache()
     return total
 
@@ -2597,7 +2746,7 @@ def perspective_run(root: str, total: dict) -> dict:
     if not (cfg.use_perspective and (cfg.degrees, cfg.translate, cfg.pscale, cfg.shear)
             == (10, 0.1, 0.1, 10)):
         fail(f"perspective: the plan's AugConfig is {cfg}")
-    step, validate_map = trainer.train_step, trainer.validate_map
+    step, validate_map = trainer.jitted_train_step(), trainer.validate_map
     boxes_out = []
 
     def train_step(state, images, labels, lmask, *hyper):
@@ -2625,9 +2774,10 @@ def perspective_run(root: str, total: dict) -> dict:
         records.append(dict(launches=launches, **summary))
         return summary
 
-    trainer.train_step, trainer.validate_map = train_step, counted
+    trainer.jitted_train_step, trainer.validate_map = (lambda: train_step), counted
     torch.cuda.reset_peak_memory_stats()
     trainer.run(log=lambda line: print(line, flush=True))
+    del trainer.jitted_train_step, trainer.validate_map     # they refer back to the trainer
     st = trainer.epoch_stats[0]
     if not np.isfinite(st["loss"]) or len(records) != 1:
         fail(f"perspective: epoch loss {st['loss']}, {len(records)} validate_map calls")
@@ -2697,10 +2847,12 @@ def launches_of(fn) -> int:
 
 
 def remat_steps(inputs) -> dict:
-    """``Trainer.train_step`` of yolov7 @640, batch 16, 1 + 5 steps under no
-    remat, ``bn_remat`` and each ``remat`` policy: step ms, peak memory,
-    launches a step; the first step's loss parts and running statistics
-    against the plain step's."""
+    """The compiled step (``Trainer.jitted_train_step()``) of yolov7 @640,
+    batch 16, 1 + 5 steps under no remat, ``bn_remat`` and each ``remat``
+    policy, the checkpoints' recomputation inside the graph: step ms, peak
+    memory, launches a step, warm-up and capture ms and the pool; the first
+    step (the warm-up, eager) against the plain step's loss parts and
+    running statistics."""
     import torch
     from yolo_continuous_tpu_torch.config.plan import TrainPlan
     from yolo_continuous_tpu_torch.train.train_loop import Trainer
@@ -2716,19 +2868,22 @@ def remat_steps(inputs) -> dict:
                                 for k, v in trainer.model.state_dict().items()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        first = {k: v.clone() for k, v in trainer.train_step(state, *inputs, 0.01, 0.1,
-                                                             0.937)[1].items()}
+        step = trainer.jitted_train_step()          # the first call: warm-up and capture
+        first = {k: v.clone() for k, v in step(state, *inputs, 0.01, 0.1, 0.937)[1].items()}
         running, weights = bn_buffers(trainer.model), flat_state(state)
         peak = torch.cuda.max_memory_allocated()
+        (call,) = trainer._graphs.values()
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
-            trainer.train_step(state, *inputs, 0.01, 0.1, 0.937)
+            step(state, *inputs, 0.01, 0.1, 0.937)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        launches = launches_of(lambda: trainer.train_step(state, *inputs, 0.01, 0.1, 0.937))
+        launches = launches_of(lambda: step(state, *inputs, 0.01, 0.1, 0.937))
         rec = dict(step_ms_median=float(np.median(times)), step_ms=times,
                    peak_memory_gb=peak / 2 ** 30, launches_per_step=launches,
+                   captured=dict(warmup_ms=call.warmup_ms, capture_ms=call.capture_ms,
+                                 pool_gib=call.pool_bytes / 2 ** 30),
                    first={k: float(v) for k, v in first.items()})
         if base is None:
             base = dict(first=first, running=running, weights=weights)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from _torch_port import ibin_logits, min_bin_gap
@@ -66,11 +67,22 @@ def test_sigmoid_bin_decode_takes_the_first_maximum():
     np.testing.assert_allclose(ours, cfg.bins().numpy()[[3, 2]], rtol=0, atol=1e-7)
 
 
+# JAX's decode_level_bin compiled as one program, as the JAX Detector
+# compiles it (inside ``_build_infer``). Called eagerly it runs op by op, and
+# each op's executable is shared by its HLO with other tests (the normalized
+# division's with JAX's ``decode_level`` of test_torch_port_decode.py) and,
+# through the persistent cache (tests/.xla_cache), with other workers, which
+# write it without an atomic rename; this program is built by this test alone.
+_jax_decode_level_bin = jax.jit(jax_decode.decode_level_bin,
+                                static_argnames=("stride", "bin_count", "normalized"))
+
+
 @pytest.mark.parametrize("normalized", [True, False])
 def test_decode_level_bin_matches_jax(normalized):
     p = _pred(0)
     ours = decode_level_bin(torch.from_numpy(p), torch.tensor(ANCHORS), 16.0, 21, normalized)
-    ref = jax_decode.decode_level_bin(jnp.asarray(p), jnp.asarray(ANCHORS), 16.0, 21, normalized)
+    ref = _jax_decode_level_bin(jnp.asarray(p), jnp.asarray(ANCHORS), stride=16.0, bin_count=21,
+                                normalized=normalized)
     assert tuple(ours.shape) == (2, 8 * 6 * 3, 5 + NC)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
 

@@ -175,7 +175,10 @@ def test_warm_start_from_a_jax_checkpoint(jax_run):
     assert set(got) == set(want)
     for k, v in want.items():
         assert torch.equal(got[k], v), k
-    assert state["step"] == 0 and state["ema"].updates == 0 and not state["opt"].state
+    assert state["step"] == 0 and state["ema"].updates == 0
+    fresh = [v for st in state["opt"].state.values() for v in st.values()]   # JAX's init: zeros
+    assert len(fresh) == len(list(state["model"].parameters()))
+    assert not any(v.any() for v in fresh)
     assert all(torch.equal(state["ema"].tree[k], got[k]) for k in state["ema"].tree)
     assert len(logs) == 2 and jax_run["path"] in logs[0]
 

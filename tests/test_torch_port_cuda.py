@@ -1437,3 +1437,227 @@ def test_captured_outputs_are_fresh_and_the_pool_goes_with_the_detector(cuda):
     gc.collect()
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == base
+
+
+# the captured train step (utils/capture.CapturedStep): on CUDA
+# Trainer.jitted_train_step() replays one graph per input shape and dtype;
+# its first call is the warm-up and a real step. Each test holds it bit for
+# bit to the eager train_step of a twin Trainer (cuDNN deterministic, the
+# Trainer's setting on CUDA) over steps whose lr_w, lr_b and mom all change.
+
+RAMP = [(0.0025 * i, 0.1 - 0.0125 * i, 0.8 + 0.02 * i) for i in range(1, 7)]
+
+
+def _yolov7_tiny_cfg(**keys):
+    return dict(tiny_plan_cfg("Detect", 64), model_cfg="cfg/net/yolov7-tiny.yaml", **keys)
+
+
+def _twins(cuda, cfg, remat=None):
+    """Two Trainers of one plan, each with the state of seed 0: the first
+    steps through the captured step, the second eagerly."""
+    out = []
+    for _ in range(2):
+        tr = Trainer(TrainPlan(dict(cfg)), device=cuda, remat=remat)
+        out += [tr, tr.init_state(seed=0)]
+    return out
+
+
+def _train_batch(seed, bs=2, dtype=torch.float32):
+    rs = np.random.RandomState(seed)
+    images = torch.from_numpy(rs.rand(bs, 64, 64, 3).astype(np.float32)).to("cuda", dtype)
+    labels = np.zeros((bs, 8, 5), np.float32)
+    lmask = np.zeros((bs, 8), bool)
+    for b in range(bs):
+        for g in range(2 + b % 2):
+            labels[b, g] = [rs.randint(2), rs.uniform(.25, .75), rs.uniform(.25, .75),
+                            rs.uniform(.15, .5), rs.uniform(.15, .5)]
+            lmask[b, g] = True
+    return images, torch.from_numpy(labels).cuda(), torch.from_numpy(lmask).cuda()
+
+
+def _state_tensors(state) -> dict:
+    out = {f"model.{k}": v for k, v in state["model"].state_dict().items()}
+    out.update({f"ema.{k}": v for k, v in state["ema"].tree.items()})
+    for i, st in state["opt"].state_dict()["state"].items():
+        out.update({f"opt.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+def _steps_bit_equal(twins, batches, hypers=RAMP):
+    """Each batch through both twins: metrics equal bit for bit every step,
+    then every tensor of the two states (the model's parameters and buffers,
+    the EMA, the optimizer's buffers) and the counters. Returns the
+    captured twin's graphs."""
+    tr, state, eager, estate = twins
+    step = tr.jitted_train_step()
+    assert step == tr._replayed_step and eager.train_step != step
+    for i, (batch, hyper) in enumerate(zip(batches, hypers)):
+        _, got = step(state, *batch, *hyper)
+        _, want = eager.train_step(estate, *batch, *hyper)
+        assert got.keys() == want.keys()
+        for k, v in want.items():
+            assert torch.equal(got[k], v), f"step {i}: {k}"
+    torch.cuda.synchronize()
+    a, b = _state_tensors(state), _state_tensors(estate)
+    assert a.keys() == b.keys()
+    for k, v in b.items():
+        assert torch.equal(a[k], v), k
+    assert (state["step"], state["ema"].updates) == (estate["step"], estate["ema"].updates)
+    return tr._graphs
+
+
+@pytest.mark.parametrize("head", ["Detect", "IAuxDetect", "IBin"])
+def test_captured_step_is_bit_equal_to_eager(cuda, head):
+    """Detect on yolov7-tiny, IAuxDetect and IBin on the tiny nets: five
+    steps, one graph, four replays."""
+    cfg = _yolov7_tiny_cfg() if head == "Detect" else tiny_plan_cfg(head, 64)
+    graphs = _steps_bit_equal(_twins(cuda, cfg), [_train_batch(s) for s in range(5)])
+    (call,) = graphs.values()
+    assert call.graph is not None and call.warmup_ms > 0 and call.capture_ms > 0
+    assert call.pool_bytes > 0 and call.launches == {}       # no kernel of the port
+
+
+@pytest.mark.parametrize("bn_remat,remat", [(True, None), (False, "full"), (False, "conv"),
+                                            (False, "dots")])
+def test_captured_step_under_remat_is_bit_equal(cuda, bn_remat, remat):
+    """``bn_remat`` and the three ``remat`` policies: the checkpoints'
+    recomputed forwards inside the graph."""
+    twins = _twins(cuda, _yolov7_tiny_cfg(bn_remat=bn_remat), remat=remat)
+    _steps_bit_equal(twins, [_train_batch(s) for s in range(5)])
+
+
+def test_captured_adam_step_is_bit_equal(cuda):
+    """Adam: its step count and bias corrections on the card, in the graph."""
+    twins = _twins(cuda, _yolov7_tiny_cfg(adam=True))
+    _steps_bit_equal(twins, [_train_batch(s) for s in range(5)])
+    assert float(twins[1]["opt"]._t) == 5.0
+
+
+def test_captured_step_takes_bf16_images_and_a_partial_batch(cuda):
+    """bf16 images (the bench's) and a partial last batch (``drop_last:
+    false``) each take a graph of their own, beside the fp32 full batch."""
+    batches = [_train_batch(0), _train_batch(1, dtype=torch.bfloat16), _train_batch(2, bs=1),
+               _train_batch(3), _train_batch(4, dtype=torch.bfloat16), _train_batch(5, bs=1)]
+    graphs = _steps_bit_equal(_twins(cuda, _yolov7_tiny_cfg()), batches)
+    assert len(graphs) == 3
+
+
+def test_try_load_between_replays(cuda, tmp_path):
+    """A checkpoint loads in place (the optimizer's buffers too): the graph
+    stays and its next replay trains from the loaded state, as the eager
+    step does."""
+    from yolo_continuous_tpu_torch.train.checkpoint import save_checkpoint, try_load
+    twins = _twins(cuda, _yolov7_tiny_cfg())
+    _steps_bit_equal(twins, [_train_batch(0), _train_batch(1)], RAMP[:2])
+    path = str(tmp_path / "a.train.pt")
+    save_checkpoint(path, twins[1])
+    _steps_bit_equal(twins, [_train_batch(2)], RAMP[2:3])
+    assert try_load(path, twins[1]) is twins[1] and try_load(path, twins[3]) is twins[3]
+    graphs = _steps_bit_equal(twins, [_train_batch(3), _train_batch(4)], RAMP[3:5])
+    (call,) = graphs.values()
+    assert twins[1]["step"] == 4
+
+
+def test_a_host_sync_in_the_loss_fails_the_step_capture(cuda, monkeypatch):
+    """A ``.item()`` slipped into the loss: the first call's warm-up runs
+    (one real step), the capture fails with ``CaptureError``, and every later
+    call raises it again without running anything."""
+    from yolo_continuous_tpu_torch.utils.capture import CaptureError
+    tr, state = _twins(cuda, _yolov7_tiny_cfg())[:2]
+    real = tr.loss_from_outputs
+
+    def syncing(outs, labels, lmask):
+        loss, parts = real(outs, labels, lmask)
+        float(loss.item())
+        return loss, parts
+    monkeypatch.setattr(tr, "loss_from_outputs", syncing)
+    batch = _train_batch(0)
+    with pytest.raises(CaptureError, match="capture failed"):
+        tr.jitted_train_step()(state, *batch, *RAMP[0])
+    torch.cuda.synchronize()
+    before = {k: v.clone() for k, v in _state_tensors(state).items()}
+    with pytest.raises(CaptureError, match="capture failed"):
+        tr.jitted_train_step()(state, *batch, *RAMP[1])
+    torch.cuda.synchronize()
+    for k, v in _state_tensors(state).items():
+        assert torch.equal(v, before[k]), k
+
+
+def test_step_capture_while_a_loader_thread_stages(cuda):
+    """A thread pinning host batches and copying them to the card on its own
+    stream through the whole first call (warm-up and capture), as the
+    prefetch loader of ``Trainer.run`` does: the capture succeeds
+    (thread-local mode) and the steps stay bit-equal to eager."""
+    import threading
+    stop, errors, rounds = threading.Event(), [], [0]
+
+    def stage():
+        try:
+            side = torch.cuda.Stream()
+            while not stop.is_set():
+                with torch.cuda.stream(side):
+                    host = torch.from_numpy(np.full((2, 64, 64, 3), 0.5, np.float32)).pin_memory()
+                    dev = host.to(cuda, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(side)
+                ready.synchronize()
+                if float(dev.sum()) != 0.5 * dev.numel():
+                    errors.append("wrong copy")
+                rounds[0] += 1
+        except Exception as e:          # reported below
+            errors.append(repr(e))
+
+    t = threading.Thread(target=stage)
+    t.start()
+    try:
+        while rounds[0] == 0 and not errors:
+            pass
+        _steps_bit_equal(_twins(cuda, _yolov7_tiny_cfg()), [_train_batch(s) for s in range(3)])
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and not errors and rounds[0] > 0
+
+
+def test_a_mesh_trainer_steps_eagerly_on_the_card(cuda, tmp_path):
+    """A world-of-one NCCL mesh: ``jitted_train_step()`` is the eager step
+    (its collectives are not captured), bit-equal to the meshless step."""
+    from yolo_continuous_tpu_torch.parallel import distributed as D
+    from yolo_continuous_tpu_torch.parallel.mesh import make_mesh, shard_params
+    cfg = _yolov7_tiny_cfg()
+    tr, state, _, _ = _twins(cuda, cfg)
+    batch = _train_batch(0)
+    _, want = tr.train_step(state, *batch, *RAMP[0])
+    D.initialize(f"file://{tmp_path / 'store'}", 1, 0, device="cuda", timeout_s=60)
+    try:
+        meshed = Trainer(TrainPlan(dict(cfg)), device=cuda, mesh=make_mesh(1, 1))
+        mstate = shard_params(meshed.mesh, meshed.init_state(seed=0))
+        step = meshed.jitted_train_step()
+        assert step == meshed.train_step
+        _, got = step(mstate, *batch, *RAMP[0])
+    finally:
+        D.shutdown()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+def test_a_dropped_trainer_frees_its_step_graph_at_once(cuda):
+    """No reference cycle holds a captured step (it lets its function go
+    after the first call): with the collector off, a dropped Trainer and its
+    graph go at once. A graph left to a later collection could be finalized
+    inside another capture, on its thread, whose ``cudaGraphExecDestroy``
+    would invalidate that capture."""
+    import gc
+    import weakref
+    tr, state = _twins(cuda, _yolov7_tiny_cfg())[:2]
+    tr.jitted_train_step()(state, *_train_batch(0), *RAMP[0])
+    (call,) = tr._graphs.values()
+    assert call.graph is not None and call._fn is None
+    refs = [weakref.ref(tr), weakref.ref(call.graph)]
+    gc.collect()
+    gc.disable()
+    try:
+        del tr, state, call
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()

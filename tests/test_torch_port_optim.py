@@ -28,7 +28,7 @@ from yolo_continuous_tpu_torch.nn.builder import YoloModel, build_model_spec
 from yolo_continuous_tpu_torch.ops import schedules
 from yolo_continuous_tpu_torch.tools.jax_weights import _leaves, _torch_key, state_dict_from_jax
 from yolo_continuous_tpu_torch.train.ema import ModelEMA, ema_decay
-from yolo_continuous_tpu_torch.train.optimizer import label_params, make_optimizer, set_hyper
+from yolo_continuous_tpu_torch.train.optimizer import label_params, make_optimizer
 
 
 def _net(name):
@@ -67,7 +67,7 @@ def test_label_params_match_jax(name):
 
 # ---------------------------------------------------------------- optimizer
 
-def _opt_case(adam):
+def _opt_case(adam, steps=2):
     cfg, spec, params, stats = _trees("IAuxDetect")
     port_spec = build_model_spec(cfg, 3, ANCHORS, 2)
     model = YoloModel(port_spec)
@@ -78,19 +78,29 @@ def _opt_case(adam):
     Plan.adam = adam
     rs = np.random.RandomState(5)
     grads = [jax.tree.map(lambda p: rs.randn(*np.shape(p)).astype(np.float32), params)
-             for _ in range(2)]
+             for _ in range(steps)]
     return port_spec, params, model, Plan, grads
 
 
-@pytest.mark.parametrize("adam", [False, True])
-def test_optimizer_steps_match_jax(adam):
-    """SGD-Nesterov: two steps with other learning rates for the bias group
-    and other momenta (warm-up style); Adam: one step. New parameters and the
-    optimizer state. (JAX computes Adam's bias correction 1 - 0.999^t in
-    fp32, where the subtraction costs 1.3e-5 of relative precision at t = 1;
-    torch in fp64: Adam's updates are held to rtol 2e-5, its moments to 1e-6.)"""
-    port_spec, params, model, plan, grads = _opt_case(adam)
-    hypers = [(0.01, 0.1, 0.8), (0.02, 0.05, 0.9)][: 1 if adam else 2]
+def _hyper(lr_w, lr_b, mom):
+    """The optimizer's device scalars (here on the CPU): lr_w, lr_b, mom."""
+    return torch.tensor([lr_w, lr_b, mom], dtype=torch.float32)
+
+
+@pytest.mark.parametrize("adam,steps", [pytest.param(False, 2, id="False"),
+                                        pytest.param(True, 1, id="True"),
+                                        pytest.param(False, 3, id="False-3-steps"),
+                                        pytest.param(True, 3, id="True-3-steps")])
+def test_optimizer_steps_match_jax(adam, steps):
+    """SGD-Nesterov and Adam, their learning rates and momentum read from a
+    device tensor (``Optimizer.step(hyper)``), over ``steps`` steps whose
+    learning rates (other ones for the bias group) and momenta all change,
+    as in the warm-up: new parameters and the optimizer state. (JAX computes
+    Adam's bias correction 1 - 0.999^t in fp32, where the subtraction costs
+    1.3e-5 of relative precision at t = 1: Adam's updates are held to rtol
+    2e-5, its moments to 1e-6.)"""
+    port_spec, params, model, plan, grads = _opt_case(adam, steps)
+    hypers = [(0.01, 0.1, 0.8), (0.02, 0.05, 0.9), (0.03, 0.02, 0.937)][:steps]
     opt = Optimizer(adam=adam, weight_decay=plan.weight_decay)
     state, p = opt.init(params), params
     labels = jax_labels(params)
@@ -99,12 +109,11 @@ def test_optimizer_steps_match_jax(adam):
                               jax_schedules.StepHyper(lr_weights=lw, lr_bias=lb, momentum=m))
     topt = make_optimizer(plan, model)
     named = dict(model.named_parameters())
-    for g, (lw, lb, m) in zip(grads, hypers):
+    for g, hyper in zip(grads, hypers):
         sd = state_dict_from_jax(port_spec, g, {})
         for n, t in named.items():
             t.grad = sd[n].clone()
-        set_hyper(topt, lw, lb, m)
-        topt.step()
+        topt.step(_hyper(*hyper))
     want = state_dict_from_jax(port_spec, p, {})
     bufs = [state.m, state.v] if adam else [state.momentum_buf]
     bufs = [state_dict_from_jax(port_spec, b, {}) for b in bufs]
@@ -120,18 +129,33 @@ def test_optimizer_steps_match_jax(adam):
         for key, buf in zip(keys, bufs):
             np.testing.assert_allclose(topt.state[t][key].numpy(), buf[n].numpy(), rtol=1e-6,
                                        atol=1e-9, err_msg=f"{n} {key}")
+    if adam:
+        assert float(topt.state[named[n]]["step"]) == steps == int(state.step)
 
 
 def test_optimizer_groups_take_their_hyper_parameters():
+    """Each group its weight decay; ``bias`` steps with ``hyper[1]``, the
+    other two with ``hyper[0]``, all with momentum ``hyper[2]``: a first step
+    from zero buffers on unit gradients moves a parameter by lr (1 + m)
+    (plus the decay's share on ``weight``)."""
     _, _, model, plan, _ = _opt_case(False)
     opt = make_optimizer(plan, model)
-    set_hyper(opt, 0.01, 0.1, 0.8)
-    got = {g["label"]: (g["lr"], g["momentum"], g["weight_decay"], g["nesterov"], len(g["params"]))
-           for g in opt.param_groups}
-    counts = {k: list(label_params(model).values()).count(k) for k in got}
-    assert got == {"bn_scale": (0.01, 0.8, 0.0, True, counts["bn_scale"]),
-                   "weight": (0.01, 0.8, 5e-4, True, counts["weight"]),
-                   "bias": (0.1, 0.8, 0.0, True, counts["bias"])}
+    labels = label_params(model)
+    got = {g["label"]: (g["weight_decay"], len(g["params"])) for g in opt.param_groups}
+    counts = {k: list(labels.values()).count(k) for k in got}
+    assert got == {"bn_scale": (0.0, counts["bn_scale"]), "weight": (5e-4, counts["weight"]),
+                   "bias": (0.0, counts["bias"])}
+    named = dict(model.named_parameters())
+    old = {n: t.detach().clone() for n, t in named.items()}
+    for t in named.values():
+        t.grad = torch.ones_like(t)
+    lr_w, lr_b, m = 0.01, 0.1, 0.8
+    opt.step(_hyper(lr_w, lr_b, m))
+    for n, t in named.items():
+        lr = lr_b if labels[n] == "bias" else lr_w
+        g = 1.0 + (5e-4 * old[n] if labels[n] == "weight" else 0.0)
+        torch.testing.assert_close(t.detach(), old[n] - lr * (1.0 + m) * g, rtol=1e-6,
+                                   atol=1e-7, msg=n)
 
 
 # ---------------------------------------------------------------- schedules

@@ -6,8 +6,9 @@
 Counterpart of the JAX package's ``bench.py`` (at the repo root), with its
 sections, environment names, keys and orchestration. Headline metric (the
 ``value``): yolov7 (flagship) training throughput at 640px, the full
-``Trainer.train_step`` (bf16 body + SimOTA loss + backward + 3-group SGD +
-EMA) on device-resident data. Extra keys carry the other BASELINE metrics:
+compiled step ``Trainer.jitted_train_step()`` (bf16 body + SimOTA loss +
+backward + 3-group SGD + EMA; on the card one captured CUDA graph) on
+device-resident data. Extra keys carry the other BASELINE metrics:
 
 - ``infer_img_s``    end-to-end batched inference (forward + decode (K3) +
   NMS (K1)) images/sec at batch 16, bf16 body and bf16 head, conf 0.25,
@@ -308,10 +309,11 @@ def section_probe(device="cuda"):
 
 def bench_train(batch, size=640, iters=20, extra_cfg=None, image_dtype="float32",
                 device="cuda"):
-    """Train img/s of ``Trainer.train_step`` on the bench's batch (lr_w,
-    lr_b, mom = 0.01, 0.1, 0.937): one warm step, then two passes of
-    ``iters`` steps, the state chained from step to step; the faster pass
-    counts (bench.py:105-155)."""
+    """Train img/s of the compiled step (``Trainer.jitted_train_step()``, as
+    the JAX bench times ``jitted_train_step``, bench.py:136) on the bench's
+    batch (lr_w, lr_b, mom = 0.01, 0.1, 0.937): one warm step (on CUDA the
+    warm-up and the capture), then two passes of ``iters`` steps, the state
+    chained from step to step; the faster pass counts (bench.py:105-155)."""
     import torch
 
     from .config.plan import TrainPlan
@@ -328,12 +330,14 @@ def bench_train(batch, size=640, iters=20, extra_cfg=None, image_dtype="float32"
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
+    step = trainer.jitted_train_step()
+
     def steps(n):
         nonlocal state
         for _ in range(n):
-            state, _ = trainer.train_step(state, images, labels, lmask, 0.01, 0.1, 0.937)
+            state, _ = step(state, images, labels, lmask, 0.01, 0.1, 0.937)
 
-    steps(1)          # warm-up (cuDNN's first calls, the allocator)
+    steps(1)          # warm-up and capture (cuDNN's first calls, the graph's pool)
     passes = [_pass_ms(dev, lambda: steps(iters)) for _ in range(2)]
     _report(dev, "train", batch=batch, extra_cfg=extra_cfg or {}, steps=iters, pass_ms=passes,
             step_ms=[p / iters for p in passes])
@@ -419,9 +423,17 @@ def _run_section(args, timeout):
     sections print cumulative partials as they go. The section's stderr (its
     ``[bench passes]`` lines) is relayed to this process's stderr."""
     cmd = [sys.executable, "-m", MODULE] + args
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                            cwd=REPO)
-    _children.add(proc)
+    # SIGTERM and SIGINT held from the start to the registration: one that
+    # came between them would leave the section running, out of the
+    # handler's reach (the child gets the mask of before)
+    held = signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGTERM, signal.SIGINT})
+    try:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                cwd=REPO,
+                                preexec_fn=lambda: signal.pthread_sigmask(signal.SIG_SETMASK, held))
+        _children.add(proc)
+    finally:
+        signal.pthread_sigmask(signal.SIG_SETMASK, held)
     try:
         stdout, stderr = proc.communicate(timeout=timeout)
         rc, err = proc.returncode, None

@@ -25,7 +25,7 @@ on the lead predictions, at ``aux_weight``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -75,10 +75,22 @@ class LossConfig:
 _UNIT_OFFSETS = ((0.0, 0.0), (1.0, 0.0), (0.0, 1.0), (-1.0, 0.0), (0.0, -1.0))
 
 
+_CONSTS: Dict[tuple, torch.Tensor] = {}
+
+
+def _frozen(values):
+    return tuple(map(_frozen, values)) if isinstance(values, (list, tuple)) else float(values)
+
+
 def _const(values, device) -> torch.Tensor:
-    """A small fp32 constant on ``device``, copied without waiting for the
-    stream (a blocking copy would hold the host until the card caught up)."""
-    return torch.tensor(values, dtype=torch.float32).to(device, non_blocking=True)
+    """A small fp32 constant on ``device``, copied there once per value and
+    device and kept (read-only): a step then copies nothing from the host,
+    which a captured step (``utils/capture.CapturedStep``) could not replay,
+    and waits for nothing."""
+    key = (_frozen(values), torch.device(device))
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.tensor(values, dtype=torch.float32).to(device)
+    return _CONSTS[key]
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:

@@ -4,6 +4,12 @@ Counterpart of ``yolo_continuous_tpu/train/ema.py`` (``main/model_ema.py:31-57``
 ramped decay ``d = decay * (1 - exp(-updates / tau))`` (0.9999, 2000) over
 every floating-point entry of the state dict, the parameters and the BN
 running statistics. The EMA is a copy: nothing aliases the live tensors.
+
+An update has a host half and a device half, so that a captured train step
+(``utils/capture.CapturedStep``) replays the device half with each step's
+decay: ``advance`` counts the update and returns its ramp (host, fp32, as
+JAX's ``ema_update``), and ``apply`` reads ``d`` and ``1 - d`` from a device
+tensor. ``update`` does both.
 """
 from __future__ import annotations
 
@@ -31,15 +37,25 @@ class ModelEMA:
             k: v.detach().clone() for k, v in model.state_dict().items() if v.is_floating_point()}
         self.updates = 0
 
-    @torch.no_grad()
-    def update(self, model: nn.Module) -> None:
-        """e <- d * e + (1 - d) * p for every entry (foreach: a few launches)."""
+    def advance(self):
+        """Count one update; its (d, 1 - d), host floats."""
         self.updates += 1
-        d, one_minus_d = ema_decay(self.updates, self.decay, self.tau)
+        return ema_decay(self.updates, self.decay, self.tau)
+
+    @torch.no_grad()
+    def apply(self, model: nn.Module, coef: torch.Tensor) -> None:
+        """e <- e * d + (1 - d) * p for every entry (JAX's order of rounding),
+        d = coef[0] and 1 - d = coef[1] on the model's device (foreach: a
+        few launches)."""
         live = model.state_dict()
         ema = list(self.tree.values())
-        torch._foreach_mul_(ema, d)
-        torch._foreach_add_(ema, [live[k] for k in self.tree], alpha=one_minus_d)
+        torch._foreach_mul_(ema, coef[0])
+        torch._foreach_add_(ema, torch._foreach_mul([live[k] for k in self.tree], coef[1]))
+
+    def update(self, model: nn.Module) -> None:
+        """``advance`` and ``apply``."""
+        coef = torch.tensor(self.advance(), dtype=torch.float32)
+        self.apply(model, coef.to(next(iter(self.tree.values())).device))
 
     def state_dict(self) -> dict:
         return {"tree": self.tree, "updates": self.updates}

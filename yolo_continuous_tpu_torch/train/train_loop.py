@@ -32,6 +32,17 @@ in the ``Detector``, and cuDNN runs deterministic algorithms
 algorithms sum with atomics, and JAX's trainer promises exact resume
 (``train_loop.py:15``), which a kill-and-resume on the card keeps bit for bit.
 
+On CUDA ``run`` steps through ``jitted_train_step()``, JAX's name for its
+compiled step: the step captured as one CUDA graph per input shape and
+dtype (``utils/capture.CapturedStep``; its first call is the warm-up and a
+real step) and replayed, so that the host's work a step is a few copies
+and one graph launch; the val losses go through ``jitted_eval_loss()``
+(``CapturedCall``). The scalars that change every step (the learning
+rates, the momentum, the EMA's decay) reach the graph as one device tensor
+(``_hyper``); the counters stay on the host. ``train_step`` is the eager
+step, the counterpart of JAX's pure ``train_step_fn`` and the oracle of
+the replays; the CPU and a mesh run it.
+
 Without the device pool, the prefetch thread stages each batch with the
 dataset's stager (on CUDA the native one, ``data/native_loader.py``: a
 threaded decode and ``stage_letterbox``) on a stream of its own; the step's
@@ -80,10 +91,11 @@ from ..ops.augment import (BatchDraw, aug_config_from_plan, augment_batch,
 from ..ops.schedules import LRSchedule
 from ..parallel.mesh import sum_gradients, use_mesh
 from ..tools.jax_weights import state_dict_from_jax
+from ..utils.capture import CapturedCall, CapturedStep
 from .checkpoint import (TRAIN_SUFFIX, jax_weights, load_checkpoint, read_jax_msgpack,
                          save_checkpoint, serving_state_dict, train_checkpoint_path, try_load)
 from .ema import ModelEMA
-from .optimizer import make_optimizer, set_hyper
+from .optimizer import make_optimizer
 
 
 def remat_policy(name):
@@ -152,6 +164,7 @@ class Trainer:
         # one record per epoch of the last run(): loss, lr, img/s, step,
         # augment and data-wait times (see run)
         self.epoch_stats: List[Dict[str, Any]] = []
+        self._drop_graphs()
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0, state_dict=None) -> Dict[str, Any]:
@@ -162,6 +175,7 @@ class Trainer:
             gen = torch.Generator().manual_seed(seed)
             state_dict = YoloModel(self.spec).init_weights(gen).state_dict()
         self.model.load_state_dict(state_dict, strict=True)
+        self._drop_graphs()
         return {"model": self.model, "opt": make_optimizer(self.plan, self.model),
                 "ema": ModelEMA(self.model, self.plan.ema_decay, self.plan.ema_tau),
                 "step": 0}
@@ -200,11 +214,21 @@ class Trainer:
                 torch.as_tensor(lmask, dtype=torch.bool, device=self.device))
 
     # ------------------------------------------------------------------
-    def train_step(self, state, images, labels, lmask, lr_w: float, lr_b: float, mom: float):
-        """One step of ``Trainer.train_step_fn``: images (bs, H, W, 3) float
-        0..1, labels (bs, max_gt, 5), lmask (bs, max_gt). Returns (state,
-        {"loss", "box", "obj", "cls", "num_fg"}, and "bin" for IBin heads),
-        values as 0-d tensors."""
+    def _hyper(self, state, lr_w: float, lr_b: float, mom: float) -> torch.Tensor:
+        """The step's scalars as one fp32 tensor on the device, copied without
+        waiting for the card: lr_w, lr_b, mom (``optimizer.Optimizer.step``)
+        and the EMA's (d, 1 - d) for this update, whose counter advances
+        here, on the host."""
+        vals = torch.tensor([lr_w, lr_b, mom, *state["ema"].advance()], dtype=torch.float32)
+        if self.device.type == "cuda":
+            vals = vals.pin_memory()
+        return vals.to(self.device, non_blocking=True)
+
+    def _update(self, state, images, labels, lmask, hyper) -> Dict[str, torch.Tensor]:
+        """The device half of a step, in place on ``state``'s tensors: forward
+        in train mode, loss, backward, the optimizer and the EMA, with the
+        scalars of ``hyper``. What a captured step records; the loss and its
+        parts, detached."""
         x, labels, lmask = self._inputs(images, labels, lmask)
         model, opt = state["model"], state["opt"]
         model.train()
@@ -215,11 +239,78 @@ class Trainer:
         if self.mesh is not None:
             sum_gradients(model, self.mesh)
             loss, parts = self._global_parts(loss, parts)
-        set_hyper(opt, lr_w, lr_b, mom)
-        opt.step()
-        state["ema"].update(model)
+        opt.step(hyper)
+        state["ema"].apply(model, hyper[3:])
+        return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+
+    def train_step(self, state, images, labels, lmask, lr_w: float, lr_b: float, mom: float):
+        """One step of ``Trainer.train_step_fn``, eager: images (bs, H, W, 3)
+        float 0..1, labels (bs, max_gt, 5), lmask (bs, max_gt). Returns (state,
+        {"loss", "box", "obj", "cls", "num_fg"}, and "bin" for IBin heads),
+        values as 0-d tensors."""
+        metrics = self._update(state, images, labels, lmask, self._hyper(state, lr_w, lr_b, mom))
         state["step"] += 1
-        return state, {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+        return state, metrics
+
+    def jitted_train_step(self):
+        """The compiled step (JAX's ``jitted_train_step``), ``train_step``'s
+        signature. On CUDA ``_replayed_step``: one ``CapturedStep`` per input
+        shape and dtype. On the CPU, and under a mesh, ``train_step`` itself:
+        a mesh's step runs collectives (gloo, or NCCL, which a graph would
+        need to capture on its own terms), so it stays eager (ROADMAP)."""
+        if self.device.type != "cuda" or self.mesh is not None:
+            return self.train_step
+        return self._replayed_step
+
+    def jitted_eval_loss(self):
+        """The compiled eval loss (JAX's ``jitted_eval_loss``), ``eval_loss``'s
+        signature. On CUDA one ``CapturedCall`` per input shape and dtype; on
+        the CPU ``eval_loss``."""
+        if self.device.type != "cuda":
+            return self.eval_loss
+        return self._replayed_eval_loss
+
+    def _drop_graphs(self) -> None:
+        """Forget every captured step and eval loss: they read the tensors of
+        the state they were captured with by address. ``init_state`` (and
+        so ``warm_start``) makes a new optimizer and EMA and drops them; a
+        call with another state dict drops them too. ``try_load`` loads in
+        place, and they stay."""
+        self._graphs, self._graph_state = {}, None
+
+    def _graphs_for(self, state) -> dict:
+        if state is not self._graph_state:
+            self._drop_graphs()
+            self._graph_state = state
+        return self._graphs
+
+    @staticmethod
+    def _shape_key(kind: str, *tensors) -> tuple:
+        return (kind,) + tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+    def _replayed_step(self, state, images, labels, lmask, lr_w: float, lr_b: float,
+                       mom: float):
+        """``train_step`` through the step captured for these inputs' shapes
+        and dtypes; its first call is the warm-up and a real step."""
+        inputs = tuple(map(torch.as_tensor, (images, labels, lmask)))
+        hyper = self._hyper(state, lr_w, lr_b, mom)
+        graphs = self._graphs_for(state)
+        key = self._shape_key("train_step", *inputs)
+        if key not in graphs:
+            graphs[key] = CapturedStep(lambda *a: self._update(state, *a), *(
+                t.to(self.device) for t in inputs), hyper)
+        metrics = graphs[key](*inputs, hyper)
+        state["step"] += 1
+        return state, metrics
+
+    def _replayed_eval_loss(self, state, images, labels, lmask) -> torch.Tensor:
+        inputs = tuple(map(torch.as_tensor, (images, labels, lmask)))
+        graphs = self._graphs_for(state)
+        key = self._shape_key("eval_loss", *inputs)
+        if key not in graphs:
+            graphs[key] = CapturedCall(lambda *a: self.eval_loss(state, *a),
+                                       *(t.to(self.device) for t in inputs))
+        return graphs[key](*inputs)
 
     @torch.no_grad()
     def _global_parts(self, loss, parts):
@@ -374,6 +465,7 @@ class Trainer:
                 f"({pool[0].numel() / 1e6:.0f} MB, {time.time() - t0:.0f}s)")
 
         host_step = int(state["step"])
+        train_step, eval_loss = self.jitted_train_step(), self.jitted_eval_loss()
         # a resumed run trains the remaining epochs of the same schedule
         epoch0 = min(host_step // steps_per_epoch, plan.epochs)
         # `stop_after_epoch`: train only the first E epochs of the
@@ -411,9 +503,8 @@ class Trainer:
                     images, labels, lmask = self.augment(draw, batch, True)
                 if marks:
                     marks[1].record()
-                state, metrics = self.train_step(state, images, labels, lmask,
-                                                 hyper.lr_weights, hyper.lr_bias,
-                                                 hyper.momentum)
+                state, metrics = train_step(state, images, labels, lmask,
+                                            hyper.lr_weights, hyper.lr_bias, hyper.momentum)
                 if marks:
                     marks[2].record()
                     events.append(marks)
@@ -443,7 +534,7 @@ class Trainer:
 
             # best-train-loss gate -> val pass + save (train.py:103-120)
             if mean_loss <= min(history):
-                val_losses = [self.eval_loss(state, *self.augment(None, b, False))
+                val_losses = [eval_loss(state, *self.augment(None, b, False))
                               for b in val_ds.epoch_batches(plan.batch_size, False, False)]
                 val_mean = float(torch.stack(val_losses).mean()) if val_losses else 0.0
                 save_checkpoint(best_path, state)

@@ -5,7 +5,11 @@ compiles forward, decode and NMS into one program per
 ``(conf_thres, nms_thres, max_det)`` (``_build_infer``,
 ``yolo_continuous_tpu/detect_api.py:220-245``), which jit caches per input
 shape; the port's ``Detector`` captures the same request into one
-``CapturedCall`` per key and shape and replays it.
+``CapturedCall`` per key and shape and replays it. JAX's ``Trainer`` jits
+its train step with the state donated (``jitted_train_step``,
+``yolo_continuous_tpu/train/train_loop.py:202-217``); the port's captures
+it as a ``CapturedStep``, a sibling for a call that updates its state in
+place (see its docstring: its first call is the warm-up and a real step).
 
 ``CapturedCall(fn, *examples)``:
 
@@ -44,6 +48,8 @@ A ``CapturedCall`` is not thread-safe: one caller at a time.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
 from typing import Callable, Dict, List, Tuple
@@ -57,6 +63,30 @@ _local = threading.local()          # .record: the list a warm-up or capture cou
 
 class CaptureError(RuntimeError):
     """A CUDA graph's capture or replay failed; nothing ran in its place."""
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """No cyclic garbage collection during a capture: a finalizer run inside
+    it, on its thread (a dropped graph's reset, ``cudaGraphExecDestroy``),
+    is an API call that invalidates the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def _stream(device: torch.device) -> torch.cuda.Stream:
+    """The device's capture stream, after the work queued so far on the
+    current stream."""
+    if device.index not in _STREAMS:
+        _STREAMS[device.index] = torch.cuda.Stream(device)
+    stream = _STREAMS[device.index]
+    stream.wait_stream(torch.cuda.current_stream(device))
+    return stream
 
 
 def count(target, n: int = 1, key=None) -> None:
@@ -112,24 +142,40 @@ class CapturedCall:
     ``pool_bytes`` the memory the capture reserved for the graph's pool (the
     device's reserved bytes before and after it)."""
 
+    _keys = None            # the output dict's keys, where ``fn`` returns a dict
+
     def __init__(self, fn: Callable, *examples: torch.Tensor):
-        if not examples or any(not isinstance(x, torch.Tensor) or x.device.type != "cuda"
-                               for x in examples):
-            raise ValueError("CapturedCall takes one or more example tensors on a CUDA device")
-        device = examples[0].device
-        self._inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=device) for x in examples)
+        self._static_inputs(examples)
         for buf, x in zip(self._inputs, examples):
             buf.copy_(x)
         with _CAPTURE_LOCK:
-            outs = self._warm_up_and_capture(fn, device)
+            outs = self._warm_up_and_capture(fn, self._inputs[0].device)
+        self._set_outputs(outs)
+
+    def _static_inputs(self, examples) -> None:
+        if not examples or any(not isinstance(x, torch.Tensor) or x.device.type != "cuda"
+                               for x in examples):
+            raise ValueError(f"{type(self).__name__} takes one or more example tensors on a "
+                             f"CUDA device")
+        device = examples[0].device
+        self._inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=device) for x in examples)
+
+    def _set_outputs(self, outs) -> None:
+        """The static outputs of a tensor, a tuple or a dict of tensors."""
         self._single = isinstance(outs, torch.Tensor)
-        self._outputs: Tuple[torch.Tensor, ...] = (outs,) if self._single else tuple(outs)
+        self._keys = tuple(outs) if isinstance(outs, dict) else None
+        self._outputs: Tuple[torch.Tensor, ...] = (
+            (outs,) if self._single else tuple(outs.values()) if self._keys else tuple(outs))
+
+    def _fresh_outputs(self):
+        """Clones of the static outputs, in the structure ``fn`` returned."""
+        outs = tuple(t.clone() for t in self._outputs)
+        if self._keys is not None:
+            return dict(zip(self._keys, outs))
+        return outs[0] if self._single else outs
 
     def _warm_up_and_capture(self, fn: Callable, device: torch.device):
-        if device.index not in _STREAMS:
-            _STREAMS[device.index] = torch.cuda.Stream(device)
-        stream = _STREAMS[device.index]
-        stream.wait_stream(torch.cuda.current_stream(device))
+        stream = _stream(device)
         t0 = time.perf_counter()
         warm: list = []
         try:
@@ -140,10 +186,15 @@ class CapturedCall:
                        f"(kernels launched: {self._describe(warm)})")
             raise
         stream.synchronize()
+        self.warmup_ms = (time.perf_counter() - t0) * 1e3
+        return self._capture(fn, stream, device)
+
+    def _capture(self, fn: Callable, stream: torch.cuda.Stream, device: torch.device):
+        """Capture ``fn`` of the static inputs on ``stream``; its outputs."""
         t1 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         record: list = []
-        with _Recording(record), torch.cuda.stream(stream):
+        with _Recording(record), torch.cuda.stream(stream), _no_collection():
             reserved = torch.cuda.memory_reserved(device)
             self.graph.capture_begin(capture_error_mode="thread_local")
             try:
@@ -163,7 +214,7 @@ class CapturedCall:
                 raise CaptureError(f"CUDA graph capture could not end and instantiate "
                                    f"({self._describe(record)}): {e}") from e
             self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        self.warmup_ms, self.capture_ms = (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+        self.capture_ms = (time.perf_counter() - t1) * 1e3
         self._record = _merge(record)
         self.launches = {_label(t, k): n for t, k, n in self._record}
         return outs
@@ -176,14 +227,18 @@ class CapturedCall:
         return ", ".join(f"{_label(t, k)} x{n}" for t, k, n in merged) + \
             f" (last: {_label(*record[-1][:2])})"
 
-    def __call__(self, *inputs):
+    def _copy_in(self, inputs) -> None:
         if len(inputs) != len(self._inputs):
-            raise ValueError(f"CapturedCall takes {len(self._inputs)} inputs, got {len(inputs)}")
+            raise ValueError(f"{type(self).__name__} takes {len(self._inputs)} inputs, "
+                             f"got {len(inputs)}")
         for buf, x in zip(self._inputs, inputs):
             if tuple(x.shape) != tuple(buf.shape) or x.dtype != buf.dtype:
-                raise ValueError(f"CapturedCall was captured for {tuple(buf.shape)} {buf.dtype}, "
-                                 f"got {tuple(x.shape)} {x.dtype}")
+                raise ValueError(f"{type(self).__name__} was captured for {tuple(buf.shape)} "
+                                 f"{buf.dtype}, got {tuple(x.shape)} {x.dtype}")
             buf.copy_(x)
+
+    def __call__(self, *inputs):
+        self._copy_in(inputs)
         try:
             self.graph.replay()
         except RuntimeError as e:
@@ -191,5 +246,59 @@ class CapturedCall:
                                f"{e}") from e
         for target, key, n in self._record:
             count(target, n, key)
-        outs = tuple(t.clone() for t in self._outputs)
-        return outs[0] if self._single else outs
+        return self._fresh_outputs()
+
+
+class CapturedStep(CapturedCall):
+    """``fn(*inputs)`` that updates state in place (a train step), as one
+    CUDA graph: the port's counterpart of ``jax.jit`` with donated state.
+
+    ``CapturedCall``'s warm-up would run ``fn`` once more than asked (a step
+    too many), so nothing runs at construction. The first call copies its
+    inputs in and runs ``fn`` eagerly on the capture stream: that is the
+    warm-up and the call's own step, whose launches count as launched. The
+    warm-up's cached blocks are released (``torch.cuda.empty_cache``), so
+    that the graph's pool takes their place rather than adding to them,
+    and ``fn`` is captured; the first call returns the warm-up's outputs.
+    Later calls copy in, replay and return clones of the static outputs, as
+    ``CapturedCall``. Host state (counters, schedules) stays outside ``fn``;
+    ``fn`` reads per-call scalars from its inputs (device tensors), since a
+    Python number is baked into the graph.
+
+    A failed capture raises ``CaptureError``: the warm-up's step stands (the
+    state moved once), and every later call raises the same error without
+    running anything (so does an error of the warm-up). ``fn`` is let go
+    after the first call, so that an owner whose ``fn`` refers back to it
+    frees its graph with it, not at a later collection. ``warmup_ms``
+    includes the wait for the warm-up to finish on the card."""
+
+    def __init__(self, fn: Callable, *examples: torch.Tensor):
+        self._static_inputs(examples)
+        self._fn, self.graph, self._error = fn, None, None
+
+    def __call__(self, *inputs):
+        if self._error is not None:
+            raise self._error
+        if self.graph is not None:
+            return super().__call__(*inputs)
+        self._copy_in(inputs)
+        with _CAPTURE_LOCK:
+            try:
+                return self._warm_up_and_capture(self._fn, self._inputs[0].device)
+            except Exception as e:
+                self.graph, self._error = None, e
+                raise
+            finally:
+                self._fn = None     # ``fn`` (a Trainer's bound step) would close a cycle
+
+    def _warm_up_and_capture(self, fn: Callable, device: torch.device):
+        """The warm-up's outputs; the static ones are the capture's."""
+        stream = _stream(device)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            outs = fn(*self._inputs)
+        stream.synchronize()
+        self.warmup_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.empty_cache()
+        self._set_outputs(self._capture(fn, stream, device))
+        return outs
