@@ -177,7 +177,16 @@ failure exits non-zero before the result line.
    ``parallel/distributed.initialize`` as a world of one through NCCL on a
    free port, ``make_mesh(1, 1)``, ``shard_params``, ``shard_batch`` and a
    ``train_step`` bit-equal to the unmeshed step (loss parts and every state
-   tensor), its step ms between two plain runs; the group is destroyed.
+   tensor), its step ms between two plain runs. Then
+   (``captured_vs_eager_mesh``) the compiled step on that mesh, one CUDA
+   graph that holds the step's collectives, against the eager mesh step of
+   a twin: 5 steps of the warm-up ramp, every loss part and every state
+   tensor bit-equal (a difference fails the phase); the captured mesh step,
+   the eager mesh step and the plain captured step in 10 alternating turns
+   (median, min, max; host ms, the profiler's kernel ms, kernels, NCCL
+   kernels, host launches, busy share) with each first call's warm-up,
+   capture, pool and peak memory; all of it again under ``bn_remat``; the
+   mesh's eval loss captured against eager. The graphs go, then the group.
    Multi-rank meshes are the CPU tests' (``tests/test_torch_port_distributed.py``).
    (tools) ``gen_anchors`` on the phase's boxes (written as VOC XMLs), and
    ``torch_export`` of the phase's ``.train.pt`` to the ``.pth`` that a
@@ -1167,6 +1176,8 @@ def profile_window(fn, calls: int = 3, grad: bool = False) -> dict:
     return {"calls": calls, "wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms, "kernels": len(rows),
             "launches_per_call": sum(e.count for e in events) / calls,
+            "nccl_kernels_per_call": sum(e.count for e in events if "nccl" in e.key.lower())
+            / calls,
             "host_launches_per_call": sum(host.values()), "host_launches_by_call": host,
             "top": [[name[:70], ms] for name, ms in rows[:10]]}
 
@@ -1233,13 +1244,18 @@ def deterministic_cost(step, turns: int = 10) -> dict:
 
 def warmup_ramp(plan, n: int) -> list:
     """Steps 1..n of the plan's warm-up ramp (``LRSchedule`` at COCO's
-    118,287 images an epoch at batch 16): lr_w, lr_b and mom all change
-    every step."""
+    118,287 images an epoch at batch 16, with the warm-up on whatever the
+    plan's ``warmup`` key says: ``cfg/coco_train.yaml`` turns it off, and
+    its schedule would then repeat one value): lr_w, lr_b and mom all change
+    every step, so a value baked into a graph would show."""
     from yolo_continuous_tpu_torch.ops.schedules import LRSchedule
     sched = LRSchedule(plan.learn_initial, plan.learn_final, plan.epochs, plan.decay,
-                       plan.momentum, plan.warmup, plan.warmup_epochs, plan.warmup_max_iter,
+                       plan.momentum, True, plan.warmup_epochs, plan.warmup_max_iter,
                        plan.warmup_momentum, plan.warmup_bias_lr, 118287 // BS)
-    return [(h.lr_weights, h.lr_bias, h.momentum) for h in map(sched, range(1, n + 1))]
+    ramp = [(h.lr_weights, h.lr_bias, h.momentum) for h in map(sched, range(1, n + 1))]
+    if not all(x != y for a, b in zip(ramp, ramp[1:]) for x, y in zip(a, b)):
+        fail(f"the warm-up ramp repeats a value: {ramp}")
+    return ramp
 
 
 def turns_and_profile(fns: dict, turns: int = REPLAY_TURNS) -> dict:
@@ -1268,6 +1284,7 @@ def turns_and_profile(fns: dict, turns: int = REPLAY_TURNS) -> dict:
                       host_ms=dict(median=float(np.median(host[k])), min=min(host[k]),
                                    max=max(host[k])),
                       kernel_ms=prof["device_ms"], kernels_per_call=prof["launches_per_call"],
+                      nccl_kernels_per_call=prof["nccl_kernels_per_call"],
                       host_launches_per_call=prof["host_launches_per_call"],
                       host_launches_by_call=prof["host_launches_by_call"],
                       busy_share=prof["busy_share"])
@@ -1292,6 +1309,63 @@ def first_call(fn, trainer, kind: str) -> dict:
                      peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
+def ramp_bit_equal(label, twins, states, inputs, ramp):
+    """The compiled step of ``twins[0]`` (``jitted_train_step()``, which must
+    be the captured one) against the eager ``train_step`` of ``twins[1]``
+    over the steps of ``ramp``: every loss part each step, then every tensor
+    of the two states, bit-equal; the first call's cost. Returns the
+    compiled step and the record."""
+    import torch
+    compiled = twins[0].jitted_train_step()
+    if compiled != twins[0]._replayed_step:
+        fail(f"{label}: jitted_train_step() is not the captured step")
+    rec = {"ramp": ramp}
+    for i, hyper in enumerate(ramp):
+        def step():
+            return compiled(states[0], *inputs, *hyper)[1]
+        if i == 0:
+            got, rec["first_call"] = first_call(step, twins[0], "train_step")
+        else:
+            got = step()
+        want = twins[1].train_step(states[1], *inputs, *hyper)[1]
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        if bad:
+            fail(f"{label} {i}: {bad} differ from the eager step: "
+                 f"{ {k: (float(got[k]), float(want[k])) for k in bad} }")
+    a, b = flat_state(states[0]), flat_state(states[1])
+    bad = [k for k in b if not torch.equal(a[k], b[k])]
+    if bad or set(a) != set(b):
+        fail(f"{label}: {len(bad)} of {len(b)} state tensors differ from the eager step's "
+             f"after {len(ramp)} steps, e.g. {bad[:5]}")
+    rec.update(bit_equal_steps=len(ramp), state_tensors=len(b))
+    return compiled, rec
+
+
+def eval_captured_vs_eager(label, trainer, state, inputs) -> dict:
+    """``jitted_eval_loss()`` (captured) against ``eval_loss``: its first
+    call, 3 replays bit-equal, then both in alternating turns."""
+    import torch
+    evaluate = trainer.jitted_eval_loss()
+    if evaluate != trainer._replayed_eval_loss:
+        fail(f"{label}: jitted_eval_loss() is not the captured eval loss")
+    got, first = first_call(lambda: evaluate(state, *inputs), trainer, "eval_loss")
+    for _ in range(3):
+        want = trainer.eval_loss(state, *inputs)
+        if not torch.equal(got, want):
+            fail(f"{label} {float(got)} differs from eager {float(want)}")
+        got = evaluate(state, *inputs)
+    return dict(first_call=first, bit_equal_replays=3, **turns_and_profile({
+        "captured": lambda: evaluate(state, *inputs),
+        "eager": lambda: trainer.eval_loss(state, *inputs)}))
+
+
+def few_host_launches(label, rec: dict) -> None:
+    """A captured call is a graph launch and a few copies."""
+    c = rec["host_launches_per_call"]
+    if not c < 50:
+        fail(f"{label}: {c} host launches a call, not a graph launch and a few copies")
+
+
 def step_captured_vs_eager(plan, inputs) -> dict:
     """The compiled train step (``Trainer.jitted_train_step()``, one CUDA
     graph) against the eager one (``train_step``), yolov7 @640, batch 16:
@@ -1304,47 +1378,18 @@ def step_captured_vs_eager(plan, inputs) -> dict:
     from yolo_continuous_tpu_torch.train.train_loop import Trainer
     twins = [Trainer(plan, device="cuda") for _ in range(2)]
     states = [tr.init_state(seed=0) for tr in twins]
-    compiled, ramp = twins[0].jitted_train_step(), warmup_ramp(plan, 5)
-    rec = {"ramp": ramp}
-    for i, hyper in enumerate(ramp):
-        def step():
-            return compiled(states[0], *inputs, *hyper)[1]
-        if i == 0:
-            got, rec["first_call"] = first_call(step, twins[0], "train_step")
-        else:
-            got = step()
-        want = twins[1].train_step(states[1], *inputs, *hyper)[1]
-        bad = [k for k in want if not torch.equal(got[k], want[k])]
-        if bad:
-            fail(f"captured train step {i}: {bad} differ from the eager step: "
-                 f"{ {k: (float(got[k]), float(want[k])) for k in bad} }")
-    a, b = flat_state(states[0]), flat_state(states[1])
-    bad = [k for k in b if not torch.equal(a[k], b[k])]
-    if bad or set(a) != set(b):
-        fail(f"captured train step: {len(bad)} of {len(b)} state tensors differ from the eager "
-             f"step's after 5 steps, e.g. {bad[:5]}")
-    rec.update(bit_equal_steps=len(ramp), state_tensors=len(b))
-    del twins[1], states[1], a, b
+    compiled, rec = ramp_bit_equal("captured train step", twins, states, inputs,
+                                   warmup_ramp(plan, 5))
+    del twins[1], states[1]
     torch.cuda.empty_cache()
     trainer, state = twins[0], states[0]
-    hyper = ramp[-1]
+    hyper = rec["ramp"][-1]
     rec["train_step"] = turns_and_profile({
         "captured": lambda: compiled(state, *inputs, *hyper),
         "eager": lambda: trainer.train_step(state, *inputs, *hyper)})
-    evaluate = trainer.jitted_eval_loss()
-    got, first = first_call(lambda: evaluate(state, *inputs), trainer, "eval_loss")
-    for _ in range(3):
-        want = trainer.eval_loss(state, *inputs)
-        if not torch.equal(got, want):
-            fail(f"captured eval loss {float(got)} differs from eager {float(want)}")
-        got = evaluate(state, *inputs)
-    rec["eval_loss"] = dict(first_call=first, bit_equal_replays=3, **turns_and_profile({
-        "captured": lambda: evaluate(state, *inputs),
-        "eager": lambda: trainer.eval_loss(state, *inputs)}))
+    rec["eval_loss"] = eval_captured_vs_eager("captured eval loss", trainer, state, inputs)
     for key in ("train_step", "eval_loss"):
-        c = rec[key]["captured"]["host_launches_per_call"]
-        if not c < 50:
-            fail(f"captured {key}: {c} host launches a call, not a graph launch and a few copies")
+        few_host_launches(f"captured {key}", rec[key]["captured"])
     return rec
 
 
@@ -2846,6 +2891,15 @@ def launches_of(fn) -> int:
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
+def coco_plan(bn_remat: bool = False):
+    """``cfg/coco_train.yaml`` at yolov7 @640, batch 16, 64 boxes."""
+    from yolo_continuous_tpu_torch.config.plan import TrainPlan
+    plan = TrainPlan("cfg/coco_train.yaml")
+    plan.image_size, plan.batch_size, plan.max_boxes = SIZE, BS, 64
+    plan.cfg = dict(plan.cfg, bn_remat=bn_remat)
+    return plan
+
+
 def remat_steps(inputs) -> dict:
     """The compiled step (``Trainer.jitted_train_step()``) of yolov7 @640,
     batch 16, 1 + 5 steps under no remat, ``bn_remat`` and each ``remat``
@@ -2854,15 +2908,11 @@ def remat_steps(inputs) -> dict:
     step (the warm-up, eager) against the plain step's loss parts and
     running statistics."""
     import torch
-    from yolo_continuous_tpu_torch.config.plan import TrainPlan
     from yolo_continuous_tpu_torch.train.train_loop import Trainer
     out, base, weights0 = {}, None, None
     for name, bn_remat, remat in REMAT_CASES:
         t_case = time.perf_counter()
-        plan = TrainPlan("cfg/coco_train.yaml")
-        plan.image_size, plan.batch_size, plan.max_boxes = SIZE, BS, 64
-        plan.cfg = dict(plan.cfg, bn_remat=bn_remat)
-        trainer = Trainer(plan, device="cuda", remat=remat)
+        trainer = Trainer(coco_plan(bn_remat), device="cuda", remat=remat)
         state = trainer.init_state(seed=0, state_dict=weights0)
         weights0 = weights0 or {k: v.detach().cpu().clone()
                                 for k, v in trainer.model.state_dict().items()}
@@ -2914,16 +2964,59 @@ def remat_steps(inputs) -> dict:
     return out, weights0
 
 
+def mesh_captured_vs_eager(mesh, inputs, weights0, bn_remat: bool) -> dict:
+    """The compiled step of a Trainer on the world-of-one NCCL ``mesh`` (one
+    ``CapturedStep`` that holds the step's collectives) against the eager
+    mesh step of a twin, both from ``weights0``: 5 steps of the warm-up ramp,
+    every loss part each step and every state tensor after bit-equal; the
+    first call's cost. Then the captured mesh step, the eager mesh step and
+    the plain (meshless) captured step in alternating turns and under the
+    profiler. Without ``bn_remat`` also the eval loss, captured against
+    eager."""
+    import torch
+    from yolo_continuous_tpu_torch.parallel.mesh import shard_batch, shard_params
+    from yolo_continuous_tpu_torch.train.train_loop import Trainer
+    plan = coco_plan(bn_remat)
+    label = "captured mesh step" + (" (bn_remat)" if bn_remat else "")
+    twins = [Trainer(plan, device="cuda", mesh=mesh) for _ in range(2)]
+    states = [shard_params(mesh, tr.init_state(state_dict=weights0)) for tr in twins]
+    batch = shard_batch(mesh, inputs)
+    compiled, rec = ramp_bit_equal(label, twins, states, batch, warmup_ramp(plan, 5))
+    del twins[1], states[1]
+    torch.cuda.empty_cache()
+    trainer, state = twins[0], states[0]
+    hyper = rec["ramp"][-1]
+    plain = Trainer(plan, device="cuda")
+    pstate = plain.init_state(state_dict=weights0)
+    pstep = plain.jitted_train_step()
+    rec["plain_first_call"] = first_call(lambda: pstep(pstate, *inputs, *hyper), plain,
+                                         "train_step")[1]
+    rec["train_step"] = turns_and_profile({
+        "captured_mesh": lambda: compiled(state, *batch, *hyper),
+        "eager_mesh": lambda: trainer.train_step(state, *batch, *hyper),
+        "captured_plain": lambda: pstep(pstate, *inputs, *hyper)})
+    for key in ("captured_mesh", "captured_plain"):
+        few_host_launches(f"{label}: {key}", rec["train_step"][key])
+    del plain, pstate, pstep
+    torch.cuda.empty_cache()
+    if not bn_remat:
+        rec["eval_loss"] = eval_captured_vs_eager("captured mesh eval loss", trainer, state,
+                                                  batch)
+        few_host_launches("captured mesh eval loss", rec["eval_loss"]["captured"])
+    return rec
+
+
 def mesh_step(inputs, weights0) -> dict:
     """A world of one through NCCL: ``initialize``, ``make_mesh(1, 1)``,
     ``shard_params``, ``shard_batch`` and ``train_step`` bit-equal to the
     unmeshed step (cuDNN in its deterministic mode for the three runs: its
     default weight-gradient algorithms sum with atomics, so two plain steps
-    differ in the last bits); step ms between two plain runs; the group
-    destroyed."""
+    differ in the last bits); step ms between two plain runs. Then
+    ``captured_vs_eager_mesh`` (``mesh_captured_vs_eager``), without and with
+    ``bn_remat``; the graphs go before the group is destroyed."""
+    import gc
     import socket
     import torch
-    from yolo_continuous_tpu_torch.config.plan import TrainPlan
     from yolo_continuous_tpu_torch.parallel import distributed as dist
     from yolo_continuous_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_params
     from yolo_continuous_tpu_torch.train.train_loop import Trainer
@@ -2939,8 +3032,7 @@ def mesh_step(inputs, weights0) -> dict:
             fail(f"mesh: the group's backend is {torch.distributed.get_backend()}, not nccl")
         mesh = make_mesh(1, 1)
         init_s = time.perf_counter() - t0
-        plan = TrainPlan("cfg/coco_train.yaml")
-        plan.image_size, plan.batch_size, plan.max_boxes = SIZE, BS, 64
+        plan = coco_plan()
         times, base = {}, None
         for label, m in (("plain", None), ("mesh", mesh), ("plain_again", None)):
             trainer = Trainer(plan, device="cuda", mesh=m)
@@ -2972,10 +3064,21 @@ def mesh_step(inputs, weights0) -> dict:
                 times[label]["launches_per_step"] = launches_of(
                     lambda: trainer.train_step(state, *batch, 0.01, 0.1, 0.937))
             del trainer, state, after
+        del base
+        torch.cuda.empty_cache()
+        captured = {}
+        for name, bn_remat in (("base", False), ("bn_remat", True)):
+            t1 = time.perf_counter()
+            captured[name] = mesh_captured_vs_eager(mesh, inputs, weights0, bn_remat)
+            captured[name]["seconds"] = time.perf_counter() - t1
+            torch.cuda.empty_cache()
         return dict(backend="nccl", world=1, layout="1 x 1", init_s=init_s,
-                    bit_equal="loss parts and every state tensor, cudnn.deterministic", **times)
+                    bit_equal="loss parts and every state tensor, cudnn.deterministic", **times,
+                    captured_vs_eager_mesh=captured)
     finally:
         torch.backends.cudnn.deterministic = deterministic
+        gc.collect()
+        torch.cuda.synchronize()
         dist.shutdown()
         torch.cuda.empty_cache()
 
@@ -3048,12 +3151,15 @@ def phase_parallel_and_tools():
     t0 = time.perf_counter()
     rec["mesh"] = mesh_step(inputs, weights0)
     rec["mesh"]["seconds"] = time.perf_counter() - t0
-    rec["tools"] = tools_check(root, trainer, total)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    rec.update(launches_parallel=total, phase_s=time.perf_counter() - t_phase,
-               config="cfg/coco_train.yaml yolov7 640px bf16 body, batch 16",
-               card=smi.stdout.strip())
+    card, config = smi.stdout.strip(), "cfg/coco_train.yaml yolov7 640px bf16 body, batch 16"
+    print(json.dumps({"captured_vs_eager_mesh": dict(
+        rec["mesh"].pop("captured_vs_eager_mesh"), config=config, mesh="1 x 1 NCCL",
+        card=card)}), flush=True)
+    rec["tools"] = tools_check(root, trainer, total)
+    rec.update(launches_parallel=total, phase_s=time.perf_counter() - t_phase, config=config,
+               card=card)
     print(json.dumps({"parallel_and_tools": rec}), flush=True)
     del trainer
     torch.cuda.empty_cache()

@@ -405,12 +405,25 @@ def dist_plan_cfg(case: str, global_bs: int, size: int = 64, max_gt: int = 8) ->
                 max_boxes=max_gt)
 
 
-def dist_batch(global_bs: int, size: int = 64, max_gt: int = 8):
+HALVES_BOXES = [[0, 0.5, 0.5, 0.4, 0.4], [1, 0.3, 0.3, 0.2, 0.25], [0, 0.7, 0.65, 0.3, 0.35],
+                [1, 0.25, 0.7, 0.3, 0.2]]
+
+
+def dist_batch(global_bs: int, size: int = 64, max_gt: int = 8, halves: bool = False):
     """The global batch of the multi-process tests (``_dist_worker.py``'s):
-    images from ``RandomState(0)``, one or two labels an image."""
+    images from ``RandomState(0)``, one or two labels an image. With
+    ``halves`` the two halves carry different label counts (four boxes an
+    image in the first, one in the second), so that a rank on "data" holds a
+    share of the loss's normalizers other than its share of the batch."""
     rs = np.random.RandomState(0)
     images = rs.rand(global_bs, size, size, 3).astype(np.float32)
     labels = np.zeros((global_bs, max_gt, 5), np.float32)
+    if halves:
+        lmask = np.zeros((global_bs, max_gt), bool)
+        half, n = global_bs // 2, len(HALVES_BOXES)
+        labels[:half, :n], lmask[:half, :n] = HALVES_BOXES, True
+        labels[half:, 0], lmask[half:, 0] = HALVES_BOXES[0], True
+        return images, labels, lmask
     labels[:, 0] = [0, 0.5, 0.5, 0.4, 0.4]
     labels[::2, 1] = [1, 0.3, 0.3, 0.2, 0.25]
     lmask = np.zeros((global_bs, max_gt), bool)

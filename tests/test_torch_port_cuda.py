@@ -9,6 +9,10 @@ They import only the port (no JAX), so they run where flax is absent.
 ``chip_smoke.py`` holds the same kernels to the same checks at the main
 path's full shapes.
 """
+import contextlib
+import gc
+import traceback
+
 import numpy as np
 import pytest
 import torch
@@ -1156,10 +1160,13 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
     (NCCL puts no two ranks on one device): the sharded convolutions,
     depthwise and RepConv slices and gathered implicits on CUDA tensors,
     against the 1-process fp32 step on the card (rtol 1e-4: cuDNN may pick
-    other algorithms for the channel slices)."""
+    other algorithms for the channel slices). The ranks' compiled step and
+    eval loss are the eager functions (a gloo collective cannot be
+    captured), and each rank's eval loss is the whole batch's."""
     import test_torch_port_distributed as TD
     got = TD._run_ranks(tmp_path, 1, 2, "shallow", False, device="cuda")
-    metrics, state = TD._single_process("shallow", False, device=cuda)
+    metrics, state, eval_loss = TD._single_process("shallow", False, device=cuda)
+    TD._check_eval_losses(got, eval_loss, 2, rtol=1e-4)
     assert any(k.endswith("implicit") for k in got["shards"])
     for k in ("loss", "box", "obj", "cls"):
         np.testing.assert_allclose(float(got["metrics"][k]), float(metrics[k]), rtol=1e-4,
@@ -1619,26 +1626,127 @@ def test_step_capture_while_a_loader_thread_stages(cuda):
     assert not t.is_alive() and not errors and rounds[0] > 0
 
 
-def test_a_mesh_trainer_steps_eagerly_on_the_card(cuda, tmp_path):
-    """A world-of-one NCCL mesh: ``jitted_train_step()`` is the eager step
-    (its collectives are not captured), bit-equal to the meshless step."""
+@contextlib.contextmanager
+def _world_of_one(tmp_path, backend="nccl"):
+    """A 1 x 1 mesh on the card over a group of one process (NCCL, or gloo
+    on CUDA tensors). The work runs in helper functions, whose frames (and
+    so their graphs) are gone before the group is destroyed, also when they
+    fail: a graph that holds NCCL kernels goes before its communicator."""
     from yolo_continuous_tpu_torch.parallel import distributed as D
-    from yolo_continuous_tpu_torch.parallel.mesh import make_mesh, shard_params
-    cfg = _yolov7_tiny_cfg()
-    tr, state, _, _ = _twins(cuda, cfg)
-    batch = _train_batch(0)
-    _, want = tr.train_step(state, *batch, *RAMP[0])
-    D.initialize(f"file://{tmp_path / 'store'}", 1, 0, device="cuda", timeout_s=60)
+    from yolo_continuous_tpu_torch.parallel.mesh import make_mesh
+    store = f"file://{tmp_path / 'store'}"
+    if backend == "nccl":
+        D.initialize(store, 1, 0, device="cuda", timeout_s=60)
+    else:
+        torch.distributed.init_process_group("gloo", init_method=store, world_size=1, rank=0)
     try:
-        meshed = Trainer(TrainPlan(dict(cfg)), device=cuda, mesh=make_mesh(1, 1))
-        mstate = shard_params(meshed.mesh, meshed.init_state(seed=0))
-        step = meshed.jitted_train_step()
-        assert step == meshed.train_step
-        _, got = step(mstate, *batch, *RAMP[0])
+        assert torch.distributed.get_backend() == backend
+        yield make_mesh(1, 1, devices="cuda")
+    except BaseException as e:
+        traceback.clear_frames(e.__traceback__)
+        raise
     finally:
+        gc.collect()
+        torch.cuda.synchronize()
         D.shutdown()
-    for k, v in want.items():
-        assert torch.equal(got[k], v), k
+
+
+def _mesh_trainer(cuda, mesh, cfg):
+    """A Trainer on ``mesh`` and its state of seed 0."""
+    from yolo_continuous_tpu_torch.parallel.mesh import shard_params
+    tr = Trainer(TrainPlan(dict(cfg)), device=cuda, mesh=mesh)
+    return tr, shard_params(mesh, tr.init_state(seed=0))
+
+
+def _mesh_steps_bit_equal(cuda, mesh, bn_remat):
+    from yolo_continuous_tpu_torch.parallel.mesh import shard_batch
+    cfg = _yolov7_tiny_cfg(bn_remat=bn_remat)
+    twins = [*_mesh_trainer(cuda, mesh, cfg), *_mesh_trainer(cuda, mesh, cfg)]
+    graphs = _steps_bit_equal(twins, [shard_batch(mesh, _train_batch(s)) for s in range(5)])
+    (call,) = graphs.values()
+    assert call.graph is not None and call.pool_bytes > 0 and call.launches == {}
+
+
+@pytest.mark.parametrize("bn_remat", [False, True])
+def test_captured_mesh_step_is_bit_equal_to_eager(cuda, tmp_path, bn_remat):
+    """A world-of-one NCCL mesh: ``jitted_train_step()`` replays one
+    ``CapturedStep`` that holds the step's collectives (BatchNorm's, the
+    loss normalizers', the gradients', the loss parts'), bit-equal to the
+    eager mesh step of a twin over 5 steps of a changing hyper vector; under
+    ``bn_remat`` the recomputed forwards' all-reduces run in the backward."""
+    with _world_of_one(tmp_path) as mesh:
+        _mesh_steps_bit_equal(cuda, mesh, bn_remat)
+
+
+def _mesh_eval_bit_equal(cuda, mesh):
+    from yolo_continuous_tpu_torch.parallel.mesh import shard_batch
+    tr, state = _mesh_trainer(cuda, mesh, _yolov7_tiny_cfg())
+    plain = Trainer(TrainPlan(_yolov7_tiny_cfg()), device=cuda)
+    pstate = plain.init_state(seed=0)
+    evaluate = tr.jitted_eval_loss()
+    assert evaluate == tr._replayed_eval_loss
+    for seed in range(3):
+        batch = shard_batch(mesh, _train_batch(seed))
+        got = evaluate(state, *batch)
+        assert torch.equal(got, tr.eval_loss(state, *batch)), seed
+        assert torch.equal(got, plain.eval_loss(pstate, *batch)), seed
+    (call,) = tr._graphs.values()
+    assert call.graph is not None
+
+
+def test_captured_mesh_eval_loss_is_bit_equal_to_eager(cuda, tmp_path):
+    """A world-of-one NCCL mesh: ``jitted_eval_loss()`` replays a
+    ``CapturedCall`` with its all-reduce, equal to the eager mesh eval loss
+    and to the meshless one bit for bit on three batches."""
+    with _world_of_one(tmp_path) as mesh:
+        _mesh_eval_bit_equal(cuda, mesh)
+
+
+def _gloo_functions_are_eager(cuda, mesh):
+    from yolo_continuous_tpu_torch.parallel.mesh import shard_batch
+    tr, state = _mesh_trainer(cuda, mesh, _yolov7_tiny_cfg())
+    step, evaluate = tr.jitted_train_step(), tr.jitted_eval_loss()
+    assert step == tr.train_step and evaluate == tr.eval_loss
+    batch = shard_batch(mesh, _train_batch(0))
+    assert torch.isfinite(evaluate(state, *batch))
+    _, parts = step(state, *batch, *RAMP[0])
+    assert torch.isfinite(parts["loss"]) and tr._graphs == {}
+
+
+def test_a_gloo_mesh_on_the_card_takes_the_eager_functions(cuda, tmp_path):
+    """A gloo group on CUDA tensors (how two ranks share the one card): its
+    collectives run on the host, so the compiled functions are the eager
+    ones, chosen before any launch, and they run."""
+    with _world_of_one(tmp_path, backend="gloo") as mesh:
+        _gloo_functions_are_eager(cuda, mesh)
+
+
+def _model_axis_collectives_captured(cuda, mesh):
+    from yolo_continuous_tpu_torch.parallel.mesh import copy_to_model, gather_from_model
+    from yolo_continuous_tpu_torch.utils.capture import CapturedCall
+
+    def fn(x, w):
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_()
+            y = gather_from_model(torch.tanh(copy_to_model(xg, mesh)), mesh, 1)
+            (gx,) = torch.autograd.grad((y * w).sum(), xg)
+        return y.detach(), gx
+
+    rs = np.random.RandomState(0)
+    x, w = (torch.from_numpy(rs.randn(2, 8, 5, 5).astype(np.float32)).to(cuda) for _ in range(2))
+    call = CapturedCall(fn, x, w)
+    for scale in (1.0, -2.0, 0.5):
+        got, want = call(x * scale, w), fn(x * scale, w)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), scale
+
+
+def test_model_axis_collectives_capture_over_nccl(cuda, tmp_path):
+    """The "model" axis's collectives in a graph on a world-of-one NCCL mesh
+    (the only mesh one card allows): ``gather_from_model``'s list
+    ``all_gather`` and ``copy_to_model``'s backward all-reduce, the latter
+    run by the autograd engine's thread, replayed equal to eager."""
+    with _world_of_one(tmp_path) as mesh:
+        _model_axis_collectives_captured(cuda, mesh)
 
 
 def test_a_dropped_trainer_frees_its_step_graph_at_once(cuda):

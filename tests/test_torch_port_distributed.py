@@ -14,6 +14,15 @@ step on the same global batch, from the same seeded state:
 - raccoon_tiny @64 (yolov7-tiny, Adam) on 2 x 1: the loss within the bound
   of the JAX package's ``tests/test_distributed.py`` (1e-3 relative).
 
+Each rank also takes the eval loss of its slice before the step, which must
+be the 1-process eval loss of the global batch on every rank (rtol 1e-5): a
+mesh's ``eval_loss`` is the global batch's, as JAX's ``jitted_eval_loss`` of
+a batch sharded over "data". ``dist_batch(halves=True)`` gives the halves of
+the batch different label counts, so that a rank's own normalizers would give
+another loss; the step runs on it too, holding ``_global_parts`` where the
+ranks' shares differ. On gloo the Trainer's compiled functions are the eager
+ones, which the ranks call.
+
 The 2 x 2 mesh (4 processes) turns ``bn_remat`` on, as
 ``__graft_entry__.py:97-102`` does for its tensor-sharded variant. Every
 child has its own timeout and is killed on expiry; a lost rank fails its
@@ -36,24 +45,26 @@ CHILD_TIMEOUT_S = 120
 GLOBAL_BS = 4
 
 
-def _single_process(case: str, bn_remat: bool, device="cpu"):
-    """The 1-process step on the whole global batch (fp32)."""
+def _single_process(case: str, bn_remat: bool, device="cpu", halves: bool = False):
+    """The 1-process eval loss, then step, on the whole global batch (fp32)."""
     torch.manual_seed(0)
     trainer = Trainer(TrainPlan(dict(TP.dist_plan_cfg(case, GLOBAL_BS), bn_remat=bn_remat)),
                       device=device, dtype=torch.float32)
     state = trainer.init_state(seed=0)
-    state, metrics = trainer.train_step(state, *TP.dist_batch(GLOBAL_BS), 0.01, 0.1, 0.9)
-    return metrics, state
+    batch = TP.dist_batch(GLOBAL_BS, halves=halves)
+    eval_loss = float(trainer.eval_loss(state, *batch))
+    state, metrics = trainer.train_step(state, *batch, 0.01, 0.1, 0.9)
+    return metrics, state, eval_loss
 
 
 def _run_ranks(tmp_path, n_data: int, n_model: int, case: str, bn_remat: bool,
-               device: str = "cpu") -> dict:
+               device: str = "cpu", halves: bool = False) -> dict:
     world = n_data * n_model
     env = dict(os.environ, OMP_NUM_THREADS="2")
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(HERE, "_torch_dist_worker.py"), str(r), str(world),
          str(n_data), str(n_model), str(tmp_path / "store"), str(tmp_path), case,
-         "1" if bn_remat else "0", device],
+         "1" if bn_remat else "0", device, "halves" if halves else "even"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
     outs = []
@@ -81,11 +92,19 @@ def _rel_l2(got: dict, want: dict) -> float:
     return (num / den) ** 0.5
 
 
-@pytest.mark.parametrize("n_data,n_model,bn_remat", [(2, 1, False), (1, 2, False),
-                                                     (2, 2, True)])
-def test_mesh_step_equals_the_one_process_step(tmp_path, n_data, n_model, bn_remat):
-    got = _run_ranks(tmp_path, n_data, n_model, "shallow", bn_remat)
-    metrics, state = _single_process("shallow", bn_remat)
+def _check_eval_losses(got: dict, want: float, world: int, rtol: float = 1e-5) -> None:
+    """Every rank's eval loss is the 1-process eval loss of the global batch."""
+    assert got["eager"] and len(got["eval_losses"]) == world
+    for r, loss in enumerate(got["eval_losses"]):
+        np.testing.assert_allclose(loss, want, rtol=rtol, err_msg=f"rank {r}")
+
+
+def _check_mesh_step(tmp_path, n_data: int, n_model: int, bn_remat: bool,
+                     halves: bool = False) -> None:
+    """The shallow net's ranks against the 1-process eval loss and step."""
+    got = _run_ranks(tmp_path, n_data, n_model, "shallow", bn_remat, halves=halves)
+    metrics, state, eval_loss = _single_process("shallow", bn_remat, halves=halves)
+    _check_eval_losses(got, eval_loss, n_data * n_model)
     if n_model > 1:          # the model axis really sharded kernels and implicits
         assert any(k.endswith("implicit") for k in got["shards"])
         assert any(k.endswith("conv.weight") for k in got["shards"])
@@ -108,11 +127,26 @@ def test_mesh_step_equals_the_one_process_step(tmp_path, n_data, n_model, bn_rem
     assert got["state"]["ema"]["updates"] == 1 and got["state"]["step"] == 1
 
 
+@pytest.mark.parametrize("n_data,n_model,bn_remat", [(2, 1, False), (1, 2, False),
+                                                     (2, 2, True)])
+def test_mesh_step_equals_the_one_process_step(tmp_path, n_data, n_model, bn_remat):
+    _check_mesh_step(tmp_path, n_data, n_model, bn_remat)
+
+
+@pytest.mark.parametrize("n_data,n_model", [(2, 1), (1, 2)])
+def test_mesh_eval_loss_is_the_global_batch_loss(tmp_path, n_data, n_model):
+    """Halves with 4 and 1 boxes an image: on 2 x 1 each rank's own
+    normalizers would give its slice's loss, not the global batch's; the
+    step's loss parts and state hold to the 1-process step there too."""
+    _check_mesh_step(tmp_path, n_data, n_model, False, halves=True)
+
+
 def test_raccoon_tiny_two_process_step(tmp_path):
     """The counterpart of the JAX package's 2-process step
     (``tests/_dist_worker.py``): yolov7-tiny @64, global batch 4, 2 x 1."""
     got = _run_ranks(tmp_path, 2, 1, "raccoon", False)
-    metrics, _ = _single_process("raccoon", False)
+    metrics, _, eval_loss = _single_process("raccoon", False)
     loss, want = float(got["metrics"]["loss"]), float(metrics["loss"])
     assert np.isfinite(loss)
     assert abs(loss - want) < 1e-3 * max(1.0, abs(want)), (loss, want)
+    _check_eval_losses(got, eval_loss, 2, rtol=1e-3)

@@ -412,9 +412,13 @@ def test_a_failed_capture_raises_and_runs_nothing_after(recorder):
 
 
 def test_a_mesh_trainer_takes_the_eager_step(tmp_path, monkeypatch):
-    """The rule: on CUDA the compiled step is the captured one, except under
-    a mesh, whose collectives stay eager. Here a world-of-one gloo mesh, its
-    device then taken for CUDA to read the rule; the step it returns trains."""
+    """The rule, read from the mesh's backend before any launch: on CUDA the
+    compiled step and eval loss replay graphs without a mesh and over NCCL
+    groups, which a graph holds with their collectives; over gloo, whose
+    collectives run on the host, they are ``train_step`` and ``eval_loss``.
+    Here a world-of-one gloo mesh, its device then taken for CUDA, and its
+    group's backend then read as NCCL; the eager functions it returns
+    train and evaluate."""
     from yolo_continuous_tpu_torch.parallel import distributed as D
     from yolo_continuous_tpu_torch.parallel import mesh as M
     cfg = tiny_plan_cfg("IAuxDetect", 64)
@@ -423,12 +427,25 @@ def test_a_mesh_trainer_takes_the_eager_step(tmp_path, monkeypatch):
     try:
         meshed = Trainer(TrainPlan(dict(cfg)), device="cpu", mesh=M.make_mesh(1, 1))
         state = M.shard_params(meshed.mesh, meshed.init_state(seed=0))
+        assert meshed.jitted_train_step() == meshed.train_step
+        assert meshed.jitted_eval_loss() == meshed.eval_loss
         for tr in (plain, meshed):
             monkeypatch.setattr(tr, "device", torch.device("cuda"))
         assert plain.jitted_train_step() == plain._replayed_step
+        assert plain.jitted_eval_loss() == plain._replayed_eval_loss
+        assert torch.distributed.get_backend(meshed.mesh.data_group) == "gloo"
         assert meshed.jitted_train_step() == meshed.train_step
-        monkeypatch.setattr(meshed, "device", torch.device("cpu"))
+        assert meshed.jitted_eval_loss() == meshed.eval_loss
+        asked = []
+        monkeypatch.setattr(torch.distributed, "get_backend",
+                            lambda group=None: asked.append(group) or "nccl")
+        assert meshed.jitted_train_step() == meshed._replayed_step
+        assert meshed.jitted_eval_loss() == meshed._replayed_eval_loss
+        assert asked == [meshed.mesh.data_group] * 2
+        monkeypatch.undo()
         batch = M.shard_batch(meshed.mesh, _batch(2))
+        loss = meshed.jitted_eval_loss()(state, *batch)
+        assert torch.equal(loss, plain.eval_loss(plain.init_state(seed=0), *batch))
         state, parts = meshed.jitted_train_step()(state, *batch, 0.01, 0.1, 0.9)
         assert state["step"] == 1 and np.isfinite(float(parts["loss"]))
     finally:

@@ -32,8 +32,14 @@ assembles whole tensors for checkpoints and tests. With a world of one,
 every collective is the identity and the step is bit-equal to the plain one.
 
 The mesh is active inside ``use_mesh`` (the ``Trainer``'s train step, its
-forward and its backward, where a recomputed forward needs it too); it is a
-process-wide setting, as one process trains one model.
+forward and its backward, where a recomputed forward needs it too, and its
+eval loss); it is a process-wide setting, as one process trains one model.
+
+Nothing here copies from the host or waits for the card inside a step, so
+over NCCL groups a CUDA graph holds the step with its collectives
+(``Trainer.jitted_train_step``; the communicator is made by the first,
+eager call). A gloo collective runs on the host, and a gloo mesh's step
+stays eager.
 """
 from __future__ import annotations
 
@@ -157,7 +163,7 @@ def global_mean(x: torch.Tensor) -> torch.Tensor:
     a factor of exactly 1 with one rank."""
     if active_mesh() is None:
         return x.mean()
-    n = torch.tensor(float(x.numel()), device=x.device)
+    n = torch.full((), float(x.numel()), device=x.device)     # a fill, no copy from the host
     return x.mean() * (n / global_count(n))
 
 

@@ -41,7 +41,10 @@ and one graph launch; the val losses go through ``jitted_eval_loss()``
 rates, the momentum, the EMA's decay) reach the graph as one device tensor
 (``_hyper``); the counters stay on the host. ``train_step`` is the eager
 step, the counterpart of JAX's pure ``train_step_fn`` and the oracle of
-the replays; the CPU and a mesh run it.
+the replays; the CPU runs it. Under a mesh the rule is the group's
+backend: over NCCL the graph holds the step's collectives, as JAX's one
+program holds GSPMD's; over gloo, whose collectives run on the host, both
+compiled functions are the eager ones (``_captures``).
 
 Without the device pool, the prefetch thread stages each batch with the
 dataset's stager (on CUDA the native one, ``data/native_loader.py``: a
@@ -65,8 +68,9 @@ Memory and parallelism, as JAX ``train_loop.py:50-74, 79-102``:
   slice of the global batch (``shard_batch``), on a model and state that
   ``shard_params`` sharded. BatchNorm statistics and the loss's normalizers
   are taken over the global batch, the gradients summed over "data", and
-  the reported loss parts are the global batch's. ``run`` trains on one
-  device, as JAX's, and refuses a mesh.
+  the reported loss parts are the global batch's; so is ``eval_loss``, the
+  same number on every rank. ``run`` trains on one device, as JAX's, and
+  refuses a mesh.
 - ``xla_opts`` (XLA compiler options shipped with the TPU compile) has no
   meaning for CUDA: a plan that sets it is refused.
 """
@@ -78,6 +82,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config.plan import TrainPlan, cvt_cfg
 from ..data.dataset import PrefetchLoader, YoloDataset, load_annotation_file
@@ -252,23 +257,30 @@ class Trainer:
         state["step"] += 1
         return state, metrics
 
+    def _captures(self) -> bool:
+        """Whether the compiled functions replay CUDA graphs: on CUDA, with no
+        mesh or a mesh whose groups are NCCL. A gloo collective runs on the
+        host, which no graph can hold, so a gloo mesh (the CPU, or gloo ranks
+        on the card) takes the eager functions. Decided before any launch;
+        nothing falls back after a failed capture."""
+        if self.device.type != "cuda":
+            return False
+        return self.mesh is None or dist.get_backend(self.mesh.data_group) == "nccl"
+
     def jitted_train_step(self):
         """The compiled step (JAX's ``jitted_train_step``), ``train_step``'s
         signature. On CUDA ``_replayed_step``: one ``CapturedStep`` per input
-        shape and dtype. On the CPU, and under a mesh, ``train_step`` itself:
-        a mesh's step runs collectives (gloo, or NCCL, which a graph would
-        need to capture on its own terms), so it stays eager (ROADMAP)."""
-        if self.device.type != "cuda" or self.mesh is not None:
-            return self.train_step
-        return self._replayed_step
+        shape and dtype, which under an NCCL mesh holds the step's
+        collectives. On the CPU and under a gloo mesh, ``train_step``
+        itself (``_captures``)."""
+        return self._replayed_step if self._captures() else self.train_step
 
     def jitted_eval_loss(self):
         """The compiled eval loss (JAX's ``jitted_eval_loss``), ``eval_loss``'s
-        signature. On CUDA one ``CapturedCall`` per input shape and dtype; on
-        the CPU ``eval_loss``."""
-        if self.device.type != "cuda":
-            return self.eval_loss
-        return self._replayed_eval_loss
+        signature. On CUDA one ``CapturedCall`` per input shape and dtype,
+        with its collective under an NCCL mesh; on the CPU and under a gloo
+        mesh ``eval_loss`` (``_captures``)."""
+        return self._replayed_eval_loss if self._captures() else self.eval_loss
 
     def _drop_graphs(self) -> None:
         """Forget every captured step and eval loss: they read the tensors of
@@ -316,7 +328,6 @@ class Trainer:
     def _global_parts(self, loss, parts):
         """The loss and its parts of the global batch: the ranks'
         contributions summed over "data", in one collective."""
-        import torch.distributed as dist
         vals = [loss] + list(parts.values())
         flat = torch.stack([v.detach().float() for v in vals])
         dist.all_reduce(flat, group=self.mesh.data_group)
@@ -325,10 +336,16 @@ class Trainer:
 
     @torch.no_grad()
     def eval_loss(self, state, images, labels, lmask) -> torch.Tensor:
-        """The loss of the current weights with the running BN statistics."""
+        """The loss of the current weights with the running BN statistics.
+        Under a mesh, of the global batch: the normalizers are taken over
+        "data" and the ranks' shares summed, so every rank returns the same
+        number."""
         x, labels, lmask = self._inputs(images, labels, lmask)
         model = state["model"].eval()
-        loss, _ = self.loss_from_outputs(model(x), labels, lmask)
+        with use_mesh(self.mesh):
+            loss, _ = self.loss_from_outputs(model(x), labels, lmask)
+        if self.mesh is not None:
+            loss = self._global_parts(loss, {})[0]
         return loss
 
     # ------------------------------------------------------------------

@@ -10,6 +10,12 @@ its train step with the state donated (``jitted_train_step``,
 ``yolo_continuous_tpu/train/train_loop.py:202-217``); the port's captures
 it as a ``CapturedStep``, a sibling for a call that updates its state in
 place (see its docstring: its first call is the warm-up and a real step).
+On a mesh whose groups are NCCL the graph holds the step's collectives too,
+as GSPMD puts them inside JAX's one program: NCCL's kernels run on its own
+stream, which events join to the capture, and the communicator is made by
+the first, eager call. A gloo collective runs on the host and cannot be
+captured; the ``Trainer`` decides which before any launch
+(``Trainer._captures``).
 
 ``CapturedCall(fn, *examples)``:
 
