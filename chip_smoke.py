@@ -46,7 +46,9 @@ failure exits non-zero before the result line.
    replays one CUDA graph per key and shape, ``utils/capture.py``); each
    path's routes (bs 16, bs 1 but IBin, and max_det 4096 with K2 in the
    graph) are held bit-equal to the eager request (``infer_eager``) in the
-   same process, eager first to itself (``replay_equal``). Last, for the
+   same process, eager first to itself (``replay_equal``); the request's
+   NMS is the eager ``nms_core`` inside its graph, and the NMS stage timed
+   alone is the compiled ``batched_nms`` (a graph of its own). Last, for the
    default and fused-tail paths at bs 16 and 1, captured against eager
    (``captured_vs_eager``): request ms in 10 alternating turns (median,
    min, max), host ms a call, device ms, kernels and host launches a
@@ -62,7 +64,7 @@ failure exits non-zero before the result line.
    fails unless every loss is finite, ``num_fg > 0``, the parameters and
    the EMA moved and a checkpoint saved on the card loads back bit-equal.
    It also times the step with ``cudnn.deterministic`` (the Trainer's
-   setting on CUDA, for exact resume) and without it, in 10 alternating
+   setting on CUDA, for exact resume) and without it, in 4 alternating
    turns: device time (the profiler's sum of the step's kernels), which
    decides its cost, and host wall time. Then the compiled step
    (``Trainer.jitted_train_step()``: one captured CUDA graph, whose first
@@ -94,10 +96,18 @@ failure exits non-zero before the result line.
    (``.train.pt``, ``.last``, ``.bestmap``) exist, every mAP is in [0, 1],
    the resume starts at step 8, and every ``validate_map`` (EMA weights
    through the ``Detector``, max_det 300) launched K3 and K1: their
-   counters are set to 0 just before each call and read just after. Then
-   one batch's augmentation from the pool, timed alone: the profiler's
-   summed kernel time, CUDA events with the stream held, and the host's
-   enqueue time.
+   counters are set to 0 just before each call and read just after. Every
+   augmentation of the run goes through ``Trainer.jitted_augment()`` (one
+   captured graph per mosaic count, source and mode, in one shared pool);
+   each epoch's record gives the graphs captured in it and their pool.
+   Then the compiled augmentation against the eager one
+   (``augment_alone``): every batch of two epochs from the pool, one epoch
+   of tiles from the card's stager and the val batches in eval mode, each
+   replay bit-equal to eager (images, labels, mask), with each key's first
+   call (warm-up, capture) and the shared pool; then one pool batch in 10
+   alternating turns (median, min, max), host ms, device ms with the
+   stream held, and the profiler's kernel ms, kernels and host launches a
+   call, which must be at most 6 for the compiled one.
 7. model_zoo: the rest of the model side, seeded random weights, on the card.
    (p6_lite) ``cfg/net/yolov7-p6-lite.yaml`` in a copy of the flagship plan
    with the upstream P6 anchors and mask, 1280 px: requests at batch 16 (bf16
@@ -166,8 +176,8 @@ failure exits non-zero before the result line.
    finite, every valid box of every augmented batch lies inside the canvas,
    and the ``validate_map`` call launched K3 in its TMA form (once, beside
    one K1), counters at 0 around it; it prints the epoch's step and augment
-   ms (CUDA events) beside phase 6's, and one pool batch's augmentation timed
-   alone with and without the perspective. ``EnhancePackage`` with the
+   ms (CUDA events) beside phase 6's, and one pool batch's augmentation,
+   compiled against eager, with and without the perspective. ``EnhancePackage`` with the
    perspective on 16 images of 640 x 480 on the card and on the CPU from the
    same draws: images within 1e-2 on 0..255, boxes and masks bit-equal.
    (remat) 1 + 5 compiled steps (captured) under no remat, ``bn_remat`` and
@@ -223,7 +233,8 @@ failure exits non-zero before the result line.
    ``BENCH_INFER_EXTRAS=fused_tails,int8``, ``BENCH_TRAIN_MODES=base,bn_remat``
    and a ``BENCH_TOTAL_BUDGET`` of 600 s: yolov7 @640 train steps at batch
    16 with and without ``bn_remat``, bf16-head requests at batch 16 and 1,
-   ``nms_single`` of 25,200 candidates, the fused-tail request at batch 1
+   the compiled ``nms_single`` of 25,200 candidates (a replayed graph, as
+   JAX's bench times its jit), the fused-tail request at batch 1
    and the int8 batch. It fails if the bench's last line holds an
    ``error``, names another device than the card, or lacks one of
    ``value``, ``train_sweep`` "16" and "16/bn_remat", ``infer_img_s``,
@@ -231,7 +242,9 @@ failure exits non-zero before the result line.
    ``infer_img_s_int8`` > 0. In this process, one call of each function
    the bench times, counters at 0 around each: K3 and K1 once a request,
    K1 once in ``nms_single``, K5 24 times in the fused-tail request
-   (``launches_bench`` in the kernels line); on the same inputs K3 on the
+   (``launches_bench`` in the kernels line); ``nms_single``'s one graph
+   for the bench's key, replayed bit-equal to the eager ``nms_core`` (its
+   warm-up, capture and pool); on the same inputs K3 on the
    bf16 head's maps at batch 16 and 1, K1 on ``nms_single``'s candidates
    and K5 on the 24 inputs of the batch-1 fused-tail request against their
    plain versions, K5 timed there beside its bound. Prints a ``bench`` JSON
@@ -1424,7 +1437,7 @@ def phase_train():
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
-    det_ms = deterministic_cost(step)
+    det_ms = deterministic_cost(step, turns=4)
     parts = [{k: float(v) for k, v in p.items()} for p in parts]
     for i, p in enumerate(parts):
         if not all(np.isfinite(v) for v in p.values()):
@@ -1572,37 +1585,138 @@ def plan_copy(root: str, name: str, **keys) -> str:
     return path
 
 
-def augment_alone(trainer, train_ann: str, cfgs=None) -> dict:
-    """One batch's augmentation from the device pool, as epoch 1 of the
-    run draws it (the draws and indices already on the card), timed alone:
-    the profiler's summed kernel time and launches, CUDA events with the
-    stream held while the host enqueues, and the host's enqueue time. With
+def augment_bit_equal(label, got, want) -> None:
+    import torch
+    bad = [name for name, g, w in zip(("images", "labels", "mask"), got, want)
+           if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w)]
+    if bad:
+        fail(f"{label}: the compiled augmentation differs from the eager one in {bad}")
+
+
+def augment_equal_passes(trainer, ds, pool, val_ds=None) -> dict:
+    """The compiled augmentation (``trainer.jitted_augment()``) against the
+    eager one on every batch of two epochs from the device pool, and with
+    ``val_ds`` on one epoch of tiles the card's stager assembles and on the
+    val batches (eval mode): every call bit-equal (images, labels, mask).
+    Returns the mosaic counts, the graphs made each epoch, each first
+    call's host ms (until the card is done) beside its warm-up and capture,
+    and the shared pool."""
+    import torch
+    compiled = trainer.jitted_augment()
+    if compiled != trainer._replayed_augment:
+        fail("augment: jitted_augment() is not the compiled augmentation")
+    plan, step, first_calls = trainer.plan, 0, []
+
+    def one(label, draw, batch, train, src):
+        before = set(trainer._aug_graphs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = compiled(draw, batch, train, pool=src)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        augment_bit_equal(label, got, trainer.augment(draw, batch, train, pool=src))
+        for key in set(trainer._aug_graphs) - before:
+            call = trainer._aug_graphs[key]
+            first_calls.append(dict(ms=ms, warmup_ms=call.warmup_ms, capture_ms=call.capture_ms,
+                                    pool_gib=call.pool_bytes / 2 ** 30))
+
+    epochs = []
+    for epoch in range(2):
+        ds.reseed(epoch)
+        made, counts = len(trainer._aug_graphs), []
+        for batch in ds.epoch_plans(BS, plan.shuffle, plan.drop_last):
+            draw = trainer.draw(step, batch[0].shape[1], *batch[-2:])
+            one(f"augment pool epoch {epoch + 1}", draw, batch, True, pool)
+            counts.append(int(batch[-2].sum()))
+            step += 1
+        epochs.append(dict(mosaic_counts=counts, graphs_made=len(trainer._aug_graphs) - made))
+    rec = dict(pool_epochs=epochs)
+    if val_ds is not None:
+        ds.reseed(0)
+        made, counts = len(trainer._aug_graphs), []
+        for batch in ds.epoch_batches(BS, plan.shuffle, plan.drop_last):
+            draw = trainer.draw(step, batch[0].shape[1], *batch[-2:])
+            one("augment tiles", draw, batch, True, None)
+            counts.append(int(batch[-2].sum()))
+            step += 1
+        n_val = 0
+        for batch in val_ds.epoch_batches(BS, False, False):
+            one("augment eval", None, batch, False, None)
+            n_val += 1
+        rec.update(tiles_epoch=dict(mosaic_counts=counts, val_batches=n_val,
+                                    graphs_made=len(trainer._aug_graphs) - made))
+    graphs = list(trainer._aug_graphs.values())
+    if len({id(g._pool) for g in graphs}) != 1:
+        fail("augment: the compiled augmentation's graphs do not share one pool")
+    rec.update(graphs=len(graphs), first_calls=first_calls, bit_equal=True,
+               pool_gib=sum(g.pool_bytes for g in graphs) / 2 ** 30,
+               static_buffers_gib=sum(t.numel() * t.element_size() for t in
+                                      list(trainer._aug_inputs.values())
+                                      + list(trainer._aug_outputs.values())) / 2 ** 30)
+    return rec
+
+
+def augment_alone(trainer, train_ann: str, cfgs=None, val_ann=None, passes=True) -> dict:
+    """The augmentation from the device pool, compiled against eager: with
+    ``passes`` the bit-equal passes (``augment_equal_passes``; with
+    ``val_ann`` also the tiles and eval), then one batch (epoch 1's first, the draws and indices
+    made outside the timing) in REPLAY_TURNS alternating turns, each 5
+    calls between CUDA events at the host's pace (median, min, max), the
+    host's clock around one call, device ms with the stream held, and a
+    profiler window of 3 calls: kernel ms, kernels and host launches a call.
+    The compiled one must make at most 6 host launches a call. With
     ``cfgs`` (name -> AugConfig), a record a config from one staged pool."""
+    import torch
     from yolo_continuous_tpu_torch.data.dataset import YoloDataset, load_annotation_file
-    from yolo_continuous_tpu_torch.ops.augment import augment_batch_from_pool, to_device
+    from yolo_continuous_tpu_torch.ops.augment import to_device
     plan = trainer.plan
-    ds = YoloDataset(load_annotation_file(train_ann), plan.image_size, plan.max_boxes,
-                     plan.mosaic, plan.mixup, plan.mosaic_prob, plan.mixup_prob, 2,
-                     plan.special_aug_ratio, seed=plan.seed)
-    pool = [to_device(a, "cuda") for a in ds.staged_pool()]
-    ds.reseed(0)
-    tile_idx, mosaic, mixup = next(ds.epoch_plans(BS, plan.shuffle, plan.drop_last))
-    idx = to_device(tile_idx, "cuda")
+
+    def dataset(ann, train):
+        return YoloDataset(load_annotation_file(ann), plan.image_size, plan.max_boxes,
+                           plan.mosaic, plan.mixup, plan.mosaic_prob, plan.mixup_prob, 2,
+                           plan.special_aug_ratio, train=train, seed=plan.seed, device="cuda")
+    ds = dataset(train_ann, True)
+    pool = tuple(to_device(a, "cuda") for a in ds.staged_pool())
     own, out = trainer.aug_cfg, {}
     for name, cfg in (cfgs or {None: own}).items():
         trainer.aug_cfg = cfg
-        draw = trainer.draw(0, tile_idx.shape[1], mosaic, mixup).to("cuda")
-
-        def call():
-            return augment_batch_from_pool(draw, *pool, idx, cfg=cfg, max_gt=plan.max_boxes)
-
-        prof = profile_window(call)
-        out[name] = dict(mosaic=int(mosaic.sum()), mixup=int(mixup.sum()),
-                         device_ms=prof["device_ms"], held_ms=cuda_ms(call, 10),
-                         host_ms=host_us(call, 10) / 1e3,
-                         launches_per_call=prof.get("launches_per_call"),
-                         profile_top=prof.get("top"))
+        trainer._drop_augment_graphs()
+        rec = augment_equal_passes(trainer, ds, pool, dataset(val_ann, False)
+                                   if val_ann else None) if passes else {}
+        ds.reseed(0)
+        batch = next(ds.epoch_plans(BS, plan.shuffle, plan.drop_last))
+        draw = trainer.draw(0, batch[0].shape[1], *batch[-2:])
+        compiled = trainer.jitted_augment()
+        fns = {"captured": lambda: compiled(draw, batch, True, pool=pool),
+               "eager": lambda: trainer.augment(draw, batch, True, pool=pool)}
+        ms, host = {k: [] for k in fns}, {k: [] for k in fns}
+        for t in range(REPLAY_TURNS):
+            for k in (list(fns) if t % 2 == 0 else list(fns)[::-1]):
+                ms[k].append(cuda_ms(fns[k], iters=5, warmup=1, hold=False))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[k]()
+                host[k].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+        rec.update(mosaic=int(batch[-2].sum()), mixup=int(batch[-1].sum()))
+        for k, fn in fns.items():
+            prof = profile_window(fn)
+            rec[k] = dict(ms=dict(median=float(np.median(ms[k])), min=min(ms[k]),
+                                  max=max(ms[k]), turns=ms[k]),
+                          host_ms=dict(median=float(np.median(host[k])), min=min(host[k]),
+                                       max=max(host[k])),
+                          held_ms=cuda_ms(fn, 10), kernel_ms=prof.get("device_ms"),
+                          kernels_per_call=prof.get("launches_per_call"),
+                          host_launches_per_call=prof.get("host_launches_per_call"),
+                          host_launches_by_call=prof.get("host_launches_by_call"),
+                          profile_top=prof.get("top"))
+        n = rec["captured"]["host_launches_per_call"]
+        if not (isinstance(n, float) and n <= 6):
+            fail(f"augment: the compiled augmentation makes {n} host launches a call, not at "
+                 f"most 6: {rec['captured']['host_launches_by_call']}")
+        out[name] = rec
     trainer.aug_cfg = own
+    trainer._drop_augment_graphs()
     return out if cfgs else out[None]
 
 
@@ -1685,7 +1799,7 @@ def phase_train_run() -> dict:
             fail(f"train_run: {path} was not written")
     if len(records) != 3:
         fail(f"train_run: {len(records)} validate_map calls, not one an epoch")
-    augment = augment_alone(second, train_ann)
+    augment = augment_alone(second, train_ann, val_ann=val_ann)
     del first
     torch.cuda.empty_cache()
     # the killed-and-resumed run against an uninterrupted one, bit for bit
@@ -1708,7 +1822,8 @@ def phase_train_run() -> dict:
         epochs=[dict({k: st[k] for k in ("epoch", "loss", "step_ms", "augment_ms",
                                          "train_step_ms", "data_wait_ms", "data_wait_ms_steps",
                                          "img_s", "seconds", "device_cache",
-                                         "max_memory_allocated")},
+                                         "max_memory_allocated", "augment_captures",
+                                         "augment_graphs", "augment_pool_gib")},
                      data_wait_ms_first=st["data_wait_ms_steps"][0],
                      data_wait_ms_later=float(np.mean(st["data_wait_ms_steps"][1:])))
                 for st in epochs],
@@ -2830,7 +2945,8 @@ def perspective_run(root: str, total: dict) -> dict:
     if not (np.min(lo) >= -1e-6 and np.max(hi) <= 1 + 1e-6 and np.sum(n) > 0):
         fail(f"perspective: a valid box outside the canvas: min {np.min(lo)}, max {np.max(hi)}")
     alone = augment_alone(trainer, train_ann, {"with": cfg,
-                                               "without": cfg._replace(use_perspective=False)})
+                                               "without": cfg._replace(use_perspective=False)},
+                          passes=False)
     rec = dict(epoch={k: st[k] for k in ("loss", "step_ms", "augment_ms", "train_step_ms",
                                          "img_s", "max_memory_allocated")},
                phase6_epochs=[{k: e.get(k) for k in ("epoch", "step_ms", "augment_ms",
@@ -2839,7 +2955,8 @@ def perspective_run(root: str, total: dict) -> dict:
                                                           max=float(np.max(hi)),
                                                           valid=int(np.sum(n))),
                validate_map=records, augment_alone=alone,
-               augment_added_ms=alone["with"]["held_ms"] - alone["without"]["held_ms"])
+               augment_added_ms=alone["with"]["captured"]["held_ms"]
+               - alone["without"]["captured"]["held_ms"])
     return trainer, rec
 
 
@@ -3578,7 +3695,24 @@ def bench_calls(total) -> tuple:
                     for c in counters()):
         total[name] += n
 
-    checks = {}
+    # the timed nms_single is the compiled one, as JAX's bench times its jit:
+    # one graph for the bench's key (K1 inside), replayed bit-equal to the
+    # eager function on the same input
+    from yolo_continuous_tpu_torch.ops import nms as nms_ops
+    keys = [k for k in nms_ops._graphs if k[0] == "_single_core" and k[2] == tuple(p.shape)]
+    if len(keys) != 1:
+        fail(f"bench: nms_single made {len(keys)} graphs for its key, not one")
+    call = nms_ops._graphs[keys[0]]
+    got = bench.nms_step(p, zero)
+    diff = differing(got, [t[0] for t in nms_ops.nms_core((p + zero)[None], bench.CONF,
+                                                          bench.IOU, bench.MAX_DET)])
+    if diff or call.launches.get("nms_suppress") != 1:
+        fail(f"bench: the compiled nms_single differs from the eager one in {diff}, or its "
+             f"graph holds {call.launches}, not one K1")
+    checks = {"nms_single_compiled": dict(bit_equal_to_eager=True, shape=list(p.shape),
+                                          launches_per_replay=call.launches,
+                                          warmup_ms=call.warmup_ms, capture_ms=call.capture_ms,
+                                          pool_gib=call.pool_bytes / 2 ** 30)}
     spec = det.spec
     with torch.inference_mode():
         for bs, x in ((BS, x16), (1, x1)):
@@ -3691,17 +3825,28 @@ def main() -> None:
     bin_spec = build_model_spec(ibin_net(), plan.image_chan, plan.anchors, plan.num_labels,
                                 plan.anchors_mask)
     k5_shapes = fused_tail_shapes()
-    report = phase_kernels(spec, bin_spec, k5_shapes)
-    phase_reference()
-    launches, main_img_s = phase_main()
-    train_img_s = phase_train()
-    phase_train_reference()
-    launches_validate_map = phase_train_run()
-    launches_model_zoo, k3_p6 = phase_model_zoo()
-    launches_serve = phase_serve()
-    launches_parallel = phase_parallel_and_tools()
-    launches_native, stager = phase_native_staging()
-    launches_bench, k5_bs1 = phase_bench(dict(infer_img_s=main_img_s, train_img_s=train_img_s))
+    seconds, t_last = {}, time.perf_counter()
+
+    def timed(name, result=None):
+        nonlocal t_last
+        seconds[name] = time.perf_counter() - t_last
+        t_last = time.perf_counter()
+        return result
+
+    report = timed("kernels", phase_kernels(spec, bin_spec, k5_shapes))
+    timed("reference", phase_reference())
+    launches, main_img_s = timed("main", phase_main())
+    train_img_s = timed("train", phase_train())
+    timed("train_reference", phase_train_reference())
+    launches_validate_map = timed("train_run", phase_train_run())
+    launches_model_zoo, k3_p6 = timed("model_zoo", phase_model_zoo())
+    launches_serve = timed("serve", phase_serve())
+    launches_parallel = timed("parallel_and_tools", phase_parallel_and_tools())
+    launches_native, stager = timed("native_staging", phase_native_staging())
+    launches_bench, k5_bs1 = timed("bench", phase_bench(dict(infer_img_s=main_img_s,
+                                                             train_img_s=train_img_s)))
+    print(json.dumps({"phase_seconds": dict(seconds, total=sum(seconds.values()))}),
+          flush=True)
 
     meta = {
         "decode_level": ("csrc/decode.cu", "yolo_continuous_tpu/kernels/decode_pallas.py:67",

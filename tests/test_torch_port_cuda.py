@@ -1769,3 +1769,164 @@ def test_a_dropped_trainer_frees_its_step_graph_at_once(cuda):
         assert [r() for r in refs] == [None, None]
     finally:
         gc.enable()
+
+
+# the compiled augmentation (Trainer.jitted_augment: one graph per key, the
+# mosaic count n among it, all in one shared pool) and the compiled NMS
+# (ops/nms.py: nms_single and batched_nms replay one graph per key), each
+# held bit for bit to its eager function in the same process
+
+AUG_ALL_ON = dict(copy_paste=0.5, flip_ud=0.5, equalize=0.5, use_perspective=True)
+
+
+def _aug_trainer(cuda, tmp_path, n_images=16, **keys):
+    """A Trainer of the tiny Detect net at 64 px, batch 4, with every
+    augmentation op on, and its JPEG dataset (train and val the same)."""
+    pytest.importorskip("cv2")
+    ann = write_dataset(tmp_path, n_images, seed=11)
+    cfg = dict(tiny_plan_cfg("Detect", 64), train=ann, val=ann, batch_size=4, max_boxes=8,
+               enhance=True, mosaic_prob=0.5, mixup_prob=0.5, seed=2, **keys)
+    tr = Trainer(TrainPlan(cfg), device=cuda)
+    tr.aug_cfg = tr.aug_cfg._replace(**AUG_ALL_ON)
+    return tr
+
+
+def _dataset(tr, train=True, device="cuda"):
+    from yolo_continuous_tpu_torch.data.dataset import YoloDataset, load_annotation_file
+    plan = tr.plan
+    ann = plan.train_indexes if train else plan.val_indexes
+    return YoloDataset(load_annotation_file(ann), plan.image_size, plan.max_boxes, plan.mosaic,
+                       plan.mixup, plan.mosaic_prob, plan.mixup_prob, 2, plan.special_aug_ratio,
+                       train=train, seed=plan.seed, device=device)
+
+
+def _augment_bit_equal(compiled, eager, draw, batch, train=True, pool=None):
+    got = compiled(draw, batch, train, pool=pool)
+    want = eager(draw, batch, train, pool=pool)
+    for name, g, w in zip(("images", "labels", "mask"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.is_cuda, name
+        assert torch.equal(g, w), f"{name} differs from the eager augmentation"
+    return got
+
+
+@pytest.mark.parametrize("source", ["pool", "tiles"])
+def test_captured_augmentation_is_bit_equal_for_every_mosaic_count(cuda, tmp_path, source):
+    """Every batch of two epochs (mosaic and mixup 0.5, so n varies), from
+    the device pool or as tiles the card's stager assembles, then n = 0 and
+    n = B forced, then the val batches in eval mode: each replay equals the
+    eager augmentation bit for bit (images, labels, mask), with copy-paste,
+    UD flip, equalize and the perspective on. One graph per key, all in one
+    pool; a second call of a key replays it."""
+    tr = _aug_trainer(cuda, tmp_path)
+    compiled = tr.jitted_augment()
+    assert compiled == tr._replayed_augment
+    ds = _dataset(tr)
+    pool = tuple(aug.to_device(a, cuda) for a in ds.staged_pool()) if source == "pool" else None
+    counts, batches = set(), []
+    for epoch in range(2):
+        ds.reseed(epoch)
+        batches += list(ds.epoch_plans(4) if pool else ds.epoch_batches(4))
+    # then the last batch's tiles with no sample and with every one flagged
+    batches += [batches[-1][:-2] + (np.arange(4) < n, batches[-1][-1]) for n in (0, 4)]
+    for step, batch in enumerate(batches):
+        draw = tr.draw(step, batch[0].shape[1], *batch[-2:])
+        assert batch[0].shape[1] == 4 and len(draw.mosaic_idx) == int(batch[-2].sum())
+        for _ in range(2):
+            _augment_bit_equal(compiled, tr.augment, draw, batch, pool=pool)
+        counts.add(len(draw.mosaic_idx))
+    assert {0, 4} <= counts and len(counts) >= 3, counts
+    for batch in _dataset(tr, train=False).epoch_batches(4, False, False):
+        _augment_bit_equal(compiled, tr.augment, None, batch, train=False)
+    graphs = list(tr._aug_graphs.values())
+    assert len({id(g._pool) for g in graphs}) == 1 and graphs[0]._pool is not None
+    assert len(graphs) == len(counts) + 1            # one a mosaic count, one eval
+    assert all(g.launches == {} for g in graphs)     # no kernel of the port in the augmentation
+
+
+def test_captured_augmentation_replays_without_a_host_sync(cuda, tmp_path):
+    """After its key's first call, a replay of the compiled augmentation,
+    from host arrays to labels, makes the host wait for nothing."""
+    tr = _aug_trainer(cuda, tmp_path, n_images=8)
+    ds = _dataset(tr)
+    pool = tuple(aug.to_device(a, cuda) for a in ds.staged_pool())
+    ds.reseed(0)
+    batch = next(ds.epoch_plans(4))
+    draw = tr.draw(0, batch[0].shape[1], *batch[-2:])
+    compiled = tr.jitted_augment()
+    want = compiled(draw, batch, pool=pool)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = compiled(tr.draw(0, batch[0].shape[1], *batch[-2:]), batch, pool=pool)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_a_failed_augmentation_capture_raises(cuda, tmp_path, monkeypatch):
+    """A host sync inside the augmentation fails its capture: ``CaptureError``,
+    no graph kept, and nothing returned in its place. The next capture takes
+    a new pool (the failed capture's stays recording) and replays bit-equal."""
+    from yolo_continuous_tpu_torch.utils.capture import CaptureError
+    tr = _aug_trainer(cuda, tmp_path, n_images=8)
+    ds = _dataset(tr)
+    ds.reseed(0)
+    batch = next(ds.epoch_batches(4))
+    draw = tr.draw(0, batch[0].shape[1], *batch[-2:])
+    real = aug._cap_boxes
+
+    def syncing(boxes, mask, cap):
+        float(mask.sum().item())
+        return real(boxes, mask, cap)
+    monkeypatch.setattr(aug, "_cap_boxes", syncing)
+    with pytest.raises(CaptureError, match="capture failed"):
+        tr.jitted_augment()(draw, batch)
+    assert tr._aug_graphs == {} and tr._aug_pool is None
+    monkeypatch.setattr(aug, "_cap_boxes", real)
+    _augment_bit_equal(tr.jitted_augment(), tr.augment, draw, batch)
+
+
+@pytest.mark.parametrize("fn,bs,max_det,kernel", [("nms_single", None, 300, "nms_suppress"),
+                                                  ("batched_nms", 2, 300, "nms_suppress"),
+                                                  ("batched_nms", 2, 4096, "nms_suppress_tiled")])
+def test_captured_nms_is_bit_equal_to_eager(cuda, fn, bs, max_det, kernel):
+    """The bench's 25,200 x 85 draws: ``nms_single`` (K1) and ``batched_nms``
+    (K1; K2 at max_det 4096) replay a graph holding the kernel, bit-equal to
+    the eager ``nms_core``; the counters move by the graph's launches a
+    replay; the key's graph is reused."""
+    from yolo_continuous_tpu_torch import bench
+    from yolo_continuous_tpu_torch.ops import nms as nms_ops
+    preds = [torch.from_numpy(a).to(cuda) for a in bench.infer_inputs(1, 64)[2]]
+    p = preds[0] if bs is None else torch.stack(preds[:bs])
+    counter = {"nms_suppress": nms_suppress, "nms_suppress_tiled": nms_suppress_tiled}[kernel]
+    nms_ops._graphs.clear()
+    core = nms_ops.nms_core(p if bs else p[None], 0.25, 0.45, max_det)
+    want = core if bs else [t[0] for t in core]
+    before = counter.launches
+    for _ in range(3):
+        got = getattr(nms_ops, fn)(p, 0.25, 0.45, max_det)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+    torch.cuda.synchronize()
+    (call,) = nms_ops._graphs.values()
+    assert call.launches.get(kernel, 0) > 0 and call.pool_bytes > 0
+    assert counter.launches - before == 3 * call.launches[kernel]
+    assert bool(want[3].any())
+
+
+def test_a_failed_nms_capture_raises(cuda, monkeypatch):
+    from yolo_continuous_tpu_torch.ops import nms as nms_ops
+    from yolo_continuous_tpu_torch.utils.capture import CaptureError
+    real = nms_ops.top_candidates
+
+    def syncing(pred, conf, k):
+        out = real(pred, conf, k)
+        float(out[1].sum().item())
+        return out
+    monkeypatch.setattr(nms_ops, "top_candidates", syncing)
+    nms_ops._graphs.clear()
+    p = torch.rand(1000, 9, device=cuda)
+    with pytest.raises(CaptureError, match="capture failed"):
+        nms_ops.nms_single(p, 0.25, 0.45, 100)
+    assert len(nms_ops._graphs) == 0

@@ -34,7 +34,7 @@ from .config.plan import TrainPlan, check_file, cvt_cfg
 from .nn.builder import YoloModel, build_model_spec, format_model_info
 from .nn.fuse import deploy_spec, fuse_model_params
 from .ops.decode import decode_outputs, decode_outputs_bin
-from .ops.nms import batched_nms, yolo_correct_boxes
+from .ops.nms import nms_core, yolo_correct_boxes
 from .ops.preprocess import cv2, letterbox
 from .tools.jax_weights import state_dict_from_jax
 from .tools.torch_import import load_torch_checkpoint
@@ -284,14 +284,16 @@ class Detector:
                     max_det: int = 300):
         """The request op by op: forward, decode, NMS. ``__call__`` on the
         CPU; on CUDA the function that ``_build_infer`` captures, and the
-        oracle its replays are held to."""
+        oracle its replays are held to. The NMS is the eager ``nms_core``,
+        not ``batched_nms``, whose CUDA route replays a graph of its own:
+        one capture cannot hold another."""
         maps, spec = self.forward(images), self.spec
         if spec.head_name == "IBin":
             pred = decode_outputs_bin(maps, spec.anchors, spec.strides, spec.bin_count,
                                       normalized=True)
         else:
             pred = decode_outputs(maps, spec.anchors, spec.strides, normalized=True)
-        return batched_nms(pred, conf_thres, nms_thres, max_det)
+        return nms_core(pred, conf_thres, nms_thres, max_det)
 
     def _drop_graphs(self) -> None:
         """Forget every captured request (JAX: ``self._infer = None``)."""

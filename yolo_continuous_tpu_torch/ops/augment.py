@@ -24,7 +24,11 @@ explicit ``torch.Generator`` (on the CPU) and returns a small record of
 parameters (``SingleDraw``, ``MosaicDraw``, ``enhance.EnhanceDraw``,
 ``BatchDraw``); each apply function is deterministic given its record.
 ``BatchDraw.to`` sends a whole record to the device in one non-blocking
-copy. JAX's key stream cannot be reproduced here, so the tests replay
+copy: every tensor of it flattened into one fp32 vector (``flat_record``),
+split and cast back on the device (``record_from_flat``, given the record's
+``record_layout``). The compiled augmentation (``Trainer.jitted_augment``)
+takes that vector as its graph's input and rebuilds the record inside the
+graph. JAX's key stream cannot be reproduced here, so the tests replay
 JAX's key splits in JAX and feed the values to the apply functions.
 """
 from __future__ import annotations
@@ -157,14 +161,54 @@ def to_record_device(rec, device):
     """A record of draws (nested NamedTuples of tensors and None) on
     ``device``, its tensors sent in one copy (``to_device``) as fp32 and cast
     back to their dtypes."""
-    leaves = _leaves(rec)
-    flat = to_device(torch.cat([t.reshape(-1).float() for t in leaves]), device)
-    parts, at = [], 0
-    for t in leaves:
-        part = flat[at:at + t.numel()].reshape(t.shape)
-        parts.append(part > 0.5 if t.dtype == torch.bool else part.to(t.dtype))
-        at += t.numel()
-    return _rebuild(rec, iter(parts))
+    return record_from_flat(to_device(flat_record(rec), device), record_layout(rec))
+
+
+def record_layout(rec):
+    """The structure of a record (nested tuples and NamedTuples of tensors,
+    arrays and None) with each tensor's shape and dtype: hashable, so that it
+    keys a graph that rebuilds the record (``record_from_flat``)."""
+    if rec is None:
+        return None
+    if isinstance(rec, tuple):
+        return (type(rec), tuple(record_layout(v) for v in rec))
+    t = torch.as_tensor(rec)
+    return (tuple(t.shape), t.dtype)
+
+
+def flat_record(rec) -> torch.Tensor:
+    """Every tensor of a record, in order, flattened into one fp32 tensor.
+    fp32 holds each value exactly: draws and boxes are fp32, flags bool,
+    indices integers far below 2**24."""
+    leaves = [torch.as_tensor(t) for t in _leaves(rec)]
+    if any(t.dtype == torch.float64 for t in leaves):
+        raise ValueError("a record's fp64 tensor would not survive its fp32 copy")
+    return torch.cat([t.reshape(-1).float() for t in leaves])
+
+
+def record_from_flat(flat: torch.Tensor, layout):
+    """The record of ``layout`` from ``flat`` (``flat_record``), on its
+    device: each tensor a slice of it, reshaped and cast back to its dtype
+    (bool as ``> 0.5``)."""
+    at = 0
+
+    def build(lay):
+        nonlocal at
+        if lay is None:
+            return None
+        if isinstance(lay[1], torch.dtype):
+            shape, dtype = lay
+            n = int(np.prod(shape))
+            part = flat[at:at + n].reshape(shape)
+            at += n
+            return part > 0.5 if dtype == torch.bool else part.to(dtype)
+        typ, fields = lay
+        return _make(typ, [build(f) for f in fields])
+    return build(layout)
+
+
+def _make(typ, vals):
+    return tuple(vals) if typ is tuple else typ(*vals)
 
 
 def to_device(a, device) -> torch.Tensor:
@@ -187,16 +231,6 @@ def _leaves(rec):
         elif v is not None:
             out.append(v)
     return out
-
-
-def _rebuild(rec, parts):
-    vals = []
-    for v in rec:
-        if isinstance(v, tuple):
-            vals.append(_rebuild(v, parts))
-        else:
-            vals.append(None if v is None else next(parts))
-    return type(rec)(*vals)
 
 
 def draw_single(gen: torch.Generator, cfg: AugConfig, B: int) -> SingleDraw:

@@ -17,6 +17,20 @@ written out where JAX uses ``vmap``. On CUDA K may be at most ``K2_MAX``
 (28,544, above a 640 px plan's 25,200 candidates); above it ``suppress``
 raises a ValueError. The plain path has no limit.
 
+``nms_single`` and ``batched_nms`` are JAX's jitted functions
+(``_nms_single_jit``, ``_batched_nms_jit``, ``ops/nms.py:141-178``), one
+compiled program per static ``(max_det, per_class)``. On a CUDA tensor the
+port replays one captured CUDA graph (``utils/capture.CapturedCall``) per
+``(device, shape, dtype, conf_thres, iou_thres, max_det, per_class)``:
+kernels K1 and K2 take ``iou_thres`` as a launch argument, which the capture
+bakes into the graph, so both thresholds key it where JAX traces them. The
+graphs stay in a cache of the ``NMS_GRAPHS`` most recently used keys
+(``_compiled``); a capture that fails raises ``CaptureError`` and nothing
+runs in its place. A CPU tensor takes the eager function. ``nms_core`` is
+the eager function on any device: what a caller that captures its own
+graph calls inside it (``Detector.infer_eager``), since one capture cannot
+hold another.
+
 IoU is ``box_iou``'s ``inter / union``, as JAX's XLA route
 (``ops/boxes.py:75``), which is the oracle of the JAX tests. JAX's TPU
 kernels divide by ``union + 1e-9`` (``kernels/nms_pallas.py:43,114``), which
@@ -26,11 +40,22 @@ keeps the XLA route (``csrc/nms.cu`` says more, and
 """
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.capture import CapturedCall
 from .boxes import box_iou
+
+# The compiled NMS's cache: at most this many captured graphs, the most
+# recently used kept. A server or a bench calls one or two keys; eight
+# leave room for a validation's and a demo's thresholds beside them.
+NMS_GRAPHS = 8
+_graphs: "OrderedDict[tuple, CapturedCall]" = OrderedDict()
+_graphs_lock = threading.Lock()       # a CapturedCall takes one caller at a time
 
 
 def _greedy_suppress(iou: torch.Tensor, same_class: torch.Tensor, valid: torch.Tensor,
@@ -112,9 +137,10 @@ def top_candidates(pred: torch.Tensor, conf_thres: float, k: int):
     return boxes, top_scores, classes, valid
 
 
-def _nms_core(pred: torch.Tensor, conf_thres: float, iou_thres: float, max_det: int,
-              per_class: bool):
-    """Batched post-process: ``(bs, N, 5+nc)`` -> fixed ``max_det`` slots."""
+def nms_core(pred: torch.Tensor, conf_thres: float, iou_thres: float, max_det: int,
+             per_class: bool = True):
+    """Batched post-process, eager on the tensor's device: ``(bs, N, 5+nc)``
+    -> fixed ``max_det`` slots (boxes, scores, classes, valid)."""
     k = min(max_det, pred.shape[1])
     boxes, top_scores, classes, valid = top_candidates(pred, conf_thres, k)
     keep = suppress(boxes, classes if per_class else torch.zeros_like(classes), valid, iou_thres)
@@ -127,16 +153,50 @@ def _nms_core(pred: torch.Tensor, conf_thres: float, iou_thres: float, max_det: 
     return boxes, top_scores, classes, keep
 
 
+def _single_core(pred, conf_thres, iou_thres, max_det, per_class):
+    return tuple(t[0] for t in nms_core(pred[None], conf_thres, iou_thres, max_det, per_class))
+
+
+def _replays(pred) -> bool:
+    """Whether ``pred`` takes the compiled route: a CUDA tensor."""
+    return isinstance(pred, torch.Tensor) and pred.device.type == "cuda"
+
+
+def _compiled(core, pred: torch.Tensor, conf_thres: float, iou_thres: float, max_det: int,
+              per_class: bool):
+    """``core(pred, ...)`` through the graph captured for this key (captured
+    at the key's first call: a warm-up, the capture, then a replay). Outside
+    inference mode, so that a graph made under one serves calls made outside
+    it (its static buffers are ordinary tensors); no autograd either way."""
+    key = (core.__name__, pred.device, tuple(pred.shape), pred.dtype, float(conf_thres),
+           float(iou_thres), int(max_det), bool(per_class))
+    with _graphs_lock, torch.inference_mode(False), torch.no_grad():
+        call = _graphs.get(key)
+        if call is None:
+            call = CapturedCall(lambda p: core(p, key[4], key[5], key[6], key[7]), pred)
+            _graphs[key] = call
+            while len(_graphs) > NMS_GRAPHS:
+                _graphs.popitem(last=False)
+        _graphs.move_to_end(key)
+        return call(pred)
+
+
 def nms_single(pred: torch.Tensor, conf_thres: float = 0.5, iou_thres: float = 0.4,
                max_det: int = 300, per_class: bool = True):
-    """One image ``(N, 5+nc)`` -> (boxes_xyxy (max_det, 4), scores, classes, valid)."""
-    return tuple(t[0] for t in _nms_core(pred[None], conf_thres, iou_thres, max_det, per_class))
+    """One image ``(N, 5+nc)`` -> (boxes_xyxy (max_det, 4), scores, classes,
+    valid): a replay of the compiled NMS on CUDA, eager on the CPU."""
+    if _replays(pred):
+        return _compiled(_single_core, pred, conf_thres, iou_thres, max_det, per_class)
+    return _single_core(pred, conf_thres, iou_thres, max_det, per_class)
 
 
 def batched_nms(pred: torch.Tensor, conf_thres: float = 0.5, iou_thres: float = 0.4,
                 max_det: int = 300, per_class: bool = True):
-    """``(bs, N, 5+nc)`` -> (boxes (bs, max_det, 4), scores, classes, valid)."""
-    return _nms_core(pred, conf_thres, iou_thres, max_det, per_class)
+    """``(bs, N, 5+nc)`` -> (boxes (bs, max_det, 4), scores, classes, valid):
+    a replay of the compiled NMS on CUDA, eager (``nms_core``) on the CPU."""
+    if _replays(pred):
+        return _compiled(nms_core, pred, conf_thres, iou_thres, max_det, per_class)
+    return nms_core(pred, conf_thres, iou_thres, max_det, per_class)
 
 
 def yolo_correct_boxes_np(boxes_xyxy, input_shape, image_shapes, letterbox_image: bool = True):

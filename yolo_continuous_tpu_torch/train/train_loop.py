@@ -46,6 +46,23 @@ backend: over NCCL the graph holds the step's collectives, as JAX's one
 program holds GSPMD's; over gloo, whose collectives run on the host, both
 compiled functions are the eager ones (``_captures``).
 
+The augmentation is compiled too, as JAX jits ``augment_batch`` and
+``augment_batch_from_pool`` (``jitted_augment()``): on CUDA one
+``CapturedCall`` per key, the key being the source (the device pool or
+host-assembled tiles), train or eval mode, the AugConfig and ``max_gt``,
+and the layout of the graph's small input: the draw record (whose mosaic
+rows, the samples whose mosaic flag is set, number n = 0..B: the mosaic
+runs on those samples only, where JAX runs it on all and selects) with the
+batch's metas, boxes and masks, or its tile indices, as one fp32 vector
+sent in one copy and split inside the graph. The graphs replay one at a
+time on the step's stream, so they share one memory pool and one static
+buffer for the tiles (copied in on the step's stream, 78.6 MB at 16 x 4 x
+640 x 640 x 3) and one set of static outputs, so that nothing of a graph
+stays live in the pool between captures; the pool path's graphs read the
+device pool by address and go when ``run`` releases it (at its end), as
+they do on ``init_state``.
+``augment`` is the eager function, the oracle and the CPU's.
+
 Without the device pool, the prefetch thread stages each batch with the
 dataset's stager (on CUDA the native one, ``data/native_loader.py``: a
 threaded decode and ``stage_letterbox``) on a stream of its own; the step's
@@ -92,11 +109,12 @@ from ..losses.yolo_loss import LossConfig, yolo_loss
 from ..nn import layers as L
 from ..nn.builder import YoloModel, build_model_spec, format_model_info
 from ..ops.augment import (BatchDraw, aug_config_from_plan, augment_batch,
-                           augment_batch_from_pool, draw_batch, to_device)
+                           augment_batch_from_pool, draw_batch, flat_record, record_from_flat,
+                           record_layout, to_device)
 from ..ops.schedules import LRSchedule
 from ..parallel.mesh import sum_gradients, use_mesh
 from ..tools.jax_weights import state_dict_from_jax
-from ..utils.capture import CapturedCall, CapturedStep
+from ..utils.capture import CapturedCall, CapturedStep, CaptureError
 from .checkpoint import (TRAIN_SUFFIX, jax_weights, load_checkpoint, read_jax_msgpack,
                          save_checkpoint, serving_state_dict, train_checkpoint_path, try_load)
 from .ema import ModelEMA
@@ -282,18 +300,33 @@ class Trainer:
         mesh ``eval_loss`` (``_captures``)."""
         return self._replayed_eval_loss if self._captures() else self.eval_loss
 
+    def jitted_augment(self):
+        """The compiled augmentation (JAX's jitted ``augment_batch`` and
+        ``augment_batch_from_pool``), ``augment``'s signature. On CUDA
+        ``_replayed_augment``: one ``CapturedCall`` per key (see the module's
+        docstring), all of them in one shared memory pool. On the CPU and
+        under a gloo mesh, ``augment`` itself (``_captures``)."""
+        return self._replayed_augment if self._captures() else self.augment
+
     def _drop_graphs(self) -> None:
         """Forget every captured step and eval loss: they read the tensors of
         the state they were captured with by address. ``init_state`` (and
         so ``warm_start``) makes a new optimizer and EMA and drops them; a
         call with another state dict drops them too. ``try_load`` loads in
-        place, and they stay."""
+        place, and they stay. ``init_state`` drops the augmentation's graphs
+        as well."""
         self._graphs, self._graph_state = {}, None
+        self._drop_augment_graphs()
+
+    def _drop_augment_graphs(self) -> None:
+        """Forget the augmentation's graphs, their shared pool and static
+        buffers, and the device pool that the pool path's graphs read."""
+        self._aug_graphs, self._aug_pool, self._aug_source = {}, None, None
+        self._aug_inputs, self._aug_outputs = {}, {}
 
     def _graphs_for(self, state) -> dict:
         if state is not self._graph_state:
-            self._drop_graphs()
-            self._graph_state = state
+            self._graphs, self._graph_state = {}, state
         return self._graphs
 
     @staticmethod
@@ -400,12 +433,72 @@ class Trainer:
         return draw_batch(gen, self.aug_cfg, len(mosaic), n_tiles, self.plan.max_boxes,
                           mosaic, mixup)
 
-    def augment(self, draw: Optional[BatchDraw], batch, train: bool = True):
+    def augment(self, draw: Optional[BatchDraw], batch, train: bool = True, pool=None):
         """A host batch of ``YoloDataset.batch`` -> (images, labels, lmask) on
-        the device; ``draw`` is None in eval mode."""
-        dev = [to_device(a, self.device) for a in batch[:4]]
-        return augment_batch(draw.to(self.device) if draw is not None else None, *dev,
-                             cfg=self.aug_cfg, max_gt=self.plan.max_boxes, train=train)
+        the device, eager; ``draw`` is None in eval mode. With ``pool`` (the
+        device pool, ``YoloDataset.staged_pool`` on the device), ``batch`` is
+        an index batch of ``epoch_plans`` and the tiles are gathered from
+        the pool (``augment_batch_from_pool``)."""
+        rec = draw.to(self.device) if draw is not None else None
+        kw = dict(cfg=self.aug_cfg, max_gt=self.plan.max_boxes, train=train)
+        if pool is not None:
+            return augment_batch_from_pool(rec, *pool, to_device(batch[0], self.device), **kw)
+        return augment_batch(rec, *(to_device(a, self.device) for a in batch[:4]), **kw)
+
+    def _replayed_augment(self, draw: Optional[BatchDraw], batch, train: bool = True,
+                          pool=None):
+        """``augment`` through the graph captured for its key (the module's
+        docstring): the small inputs go as one fp32 vector, from pinned
+        memory without a host wait, and the tiles into the shared static
+        buffer of their shape; the graph's results into shared static
+        outputs, of which the call returns clones."""
+        small = (batch[0],) if pool is not None else tuple(batch[1:4])
+        rec = ((draw,) if train else ()) + tuple(torch.as_tensor(a) for a in small)
+        flat, layout = flat_record(rec), record_layout(rec)
+        if self.device.type == "cuda":
+            flat = flat.pin_memory()
+        inputs = (flat,)
+        if pool is None:
+            tiles = torch.as_tensor(batch[0])
+            inputs += (tiles,)
+        elif pool is not self._aug_source:
+            # the pool path's graphs read the device pool they were made with
+            self._aug_graphs = {k: c for k, c in self._aug_graphs.items() if not k[0]}
+            self._aug_source = pool
+        key = (pool is not None, train, self.aug_cfg, self.plan.max_boxes, layout,
+               *((tuple(t.shape), t.dtype) for t in inputs[1:]))
+        call = self._aug_graphs.get(key)
+        if call is None:
+            if self._aug_pool is None:
+                self._aug_pool = CapturedCall.new_pool()
+            examples = [to_device(t, self.device) for t in inputs]
+            for t in examples[1:]:
+                if (t.shape, t.dtype) not in self._aug_inputs:
+                    self._aug_inputs[t.shape, t.dtype] = torch.empty_like(t)
+            statics = [torch.empty_like(examples[0])] + [self._aug_inputs[t.shape, t.dtype]
+                                                         for t in examples[1:]]
+            try:
+                call = CapturedCall(self._augment_fn(layout, train, pool), *examples,
+                                    pool=self._aug_pool, inputs=statics,
+                                    outputs=self._aug_outputs)
+            except CaptureError:
+                self._aug_pool = None       # a failed capture leaves its pool unusable
+                raise
+            self._aug_graphs[key] = call
+        return call(*inputs)
+
+    def _augment_fn(self, layout, train: bool, pool):
+        """The function a graph of ``_replayed_augment`` captures: the record
+        rebuilt from the flat vector, then the eager augmentation."""
+        kw = dict(cfg=self.aug_cfg, max_gt=self.plan.max_boxes, train=train)
+
+        def fn(flat, *tiles):
+            rec = record_from_flat(flat, layout)
+            draw, small = (rec[0], rec[1:]) if train else (None, rec)
+            if pool is not None:
+                return augment_batch_from_pool(draw, *pool, *small, **kw)
+            return augment_batch(draw, *tiles, *small, **kw)
+        return fn
 
     # ------------------------------------------------------------------
     def run(self, log=print) -> Dict[str, Any]:
@@ -414,11 +507,14 @@ class Trainer:
         one record per epoch: ``step_ms`` (wall time a step), ``data_wait_ms``
         (host time waiting for the next batch, the mean and
         ``data_wait_ms_steps`` each step's), and on CUDA ``augment_ms`` and
-        ``train_step_ms`` (CUDA events a step) and ``max_memory_allocated``."""
+        ``train_step_ms`` (CUDA events a step) and ``max_memory_allocated``,
+        and those of the compiled augmentation: ``augment_captures`` (its
+        graphs captured in the epoch), ``augment_graphs`` (held at its end)
+        and ``augment_pool_gib`` (their shared pool). Every augmentation
+        goes through ``jitted_augment()``, whose graphs go at the end."""
         plan = self.plan
         if self.mesh is not None:
             raise ValueError("Trainer.run trains on one device; a mesh serves train_step")
-        cuda = self.device.type == "cuda"
         train_ds = YoloDataset(
             load_annotation_file(plan.train_indexes), plan.image_size,
             plan.max_boxes, plan.mosaic, plan.mixup, plan.mosaic_prob,
@@ -447,9 +543,6 @@ class Trainer:
         last_path = best_path + ".last"
         if plan.resume and (try_load(last_path, state) or try_load(best_path, state)):
             log(f"resumed at step {state['step']}")
-
-        best_map = -math.inf
-        history = []
 
         # `device_cache` plan key: stage the whole train set once onto the
         # device; a step then ships only (B, T) tile indices. On by default
@@ -483,6 +576,21 @@ class Trainer:
 
         host_step = int(state["step"])
         train_step, eval_loss = self.jitted_train_step(), self.jitted_eval_loss()
+        augment = self.jitted_augment()
+        try:
+            return self._epochs(state, train_ds, val_ds, sched, pool, host_step, train_step,
+                                eval_loss, augment, steps_per_epoch, log)
+        finally:
+            self._drop_augment_graphs()       # and with them the device pool they read
+
+    def _epochs(self, state, train_ds, val_ds, sched, pool, host_step, train_step, eval_loss,
+                augment, steps_per_epoch, log):
+        """``run``'s epochs, from the state it prepared."""
+        plan, cuda, device_cache = self.plan, self.device.type == "cuda", pool is not None
+        best_path = train_checkpoint_path(plan.save_path)
+        last_path = best_path + ".last"
+        best_map = -math.inf
+        history = []
         # a resumed run trains the remaining epochs of the same schedule
         epoch0 = min(host_step // steps_per_epoch, plan.epochs)
         # `stop_after_epoch`: train only the first E epochs of the
@@ -494,6 +602,7 @@ class Trainer:
             train_ds.reseed(epoch)
             t0 = time.time()
             losses, nsteps, waits, events = [], 0, [], []
+            graphs0 = len(self._aug_graphs)
             hyper = sched(host_step)
             if device_cache:
                 # index batches are a few hundred bytes: no prefetch thread
@@ -512,12 +621,7 @@ class Trainer:
                 if marks:
                     marks[0].record()
                 draw = self.draw(host_step, batch[0].shape[1], *batch[-2:])
-                if device_cache:
-                    images, labels, lmask = augment_batch_from_pool(
-                        draw.to(self.device), *pool, to_device(batch[0], self.device),
-                        cfg=self.aug_cfg, max_gt=plan.max_boxes, train=True)
-                else:
-                    images, labels, lmask = self.augment(draw, batch, True)
+                images, labels, lmask = augment(draw, batch, True, pool=pool)
                 if marks:
                     marks[1].record()
                 state, metrics = train_step(state, images, labels, lmask,
@@ -551,7 +655,7 @@ class Trainer:
 
             # best-train-loss gate -> val pass + save (train.py:103-120)
             if mean_loss <= min(history):
-                val_losses = [eval_loss(state, *self.augment(None, b, False))
+                val_losses = [eval_loss(state, *augment(None, b, False))
                               for b in val_ds.epoch_batches(plan.batch_size, False, False)]
                 val_mean = float(torch.stack(val_losses).mean()) if val_losses else 0.0
                 save_checkpoint(best_path, state)
@@ -569,6 +673,13 @@ class Trainer:
                     save_checkpoint(best_path + ".bestmap", state)
                     line += f" (best) -> {best_path}.bestmap"
                 log(line)
+            if events and self._aug_graphs:
+                # the compiled augmentation: its graphs (train and eval) made
+                # this epoch and held at its end, and their shared pool
+                stats.update(augment_captures=len(self._aug_graphs) - graphs0,
+                             augment_graphs=len(self._aug_graphs),
+                             augment_pool_gib=sum(c.pool_bytes for c in
+                                                  self._aug_graphs.values()) / 2 ** 30)
         return state
 
     def validate_map(self, state, log=print, **kw) -> dict:

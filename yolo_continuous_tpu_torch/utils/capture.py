@@ -15,7 +15,10 @@ as GSPMD puts them inside JAX's one program: NCCL's kernels run on its own
 stream, which events join to the capture, and the communicator is made by
 the first, eager call. A gloo collective runs on the host and cannot be
 captured; the ``Trainer`` decides which before any launch
-(``Trainer._captures``).
+(``Trainer._captures``). JAX jits the augmentation (``augment_batch``,
+``augment_batch_from_pool``) and the NMS (``nms_single``, ``batched_nms``)
+too; the port captures them likewise (``Trainer.jitted_augment``,
+``ops/nms.py``).
 
 ``CapturedCall(fn, *examples)``:
 
@@ -29,11 +32,31 @@ captured; the ``Trainer`` decides which before any launch
    its own stream, another model's serving worker) go on working meanwhile.
    PyTorch allows one capture at a time in a process, so a warm-up and its
    capture hold ``_CAPTURE_LOCK``, and all captures share one side stream a
-   device (``_STREAMS``), whose per-stream state is then set up once;
-4. on each call copies the caller's inputs into the static buffers, replays
-   the graph on the current stream and returns clones of the static outputs:
-   a result held across calls is never overwritten by a later one, as JAX
-   returns fresh arrays.
+   device (``_STREAMS``), whose per-stream state is then set up once. A
+   capture cannot hold another: a ``CapturedCall`` made inside a warm-up or
+   capture on the same thread raises ``CaptureError`` (the lock would
+   otherwise wait for itself);
+4. on each call copies the caller's inputs into the static buffers (from
+   pinned host memory without making the host wait), replays the graph on
+   the current stream and returns clones of the static outputs: a result
+   held across calls is never overwritten by a later one, as JAX returns
+   fresh arrays.
+
+Graphs that only ever replay one at a time on one stream may share what a
+graph holds besides its kernels (the ``Trainer``'s augmentation graphs, one
+per mosaic count): ``pool`` (``new_pool()``) captures into one memory pool
+shared with them; ``inputs`` hands in static input buffers made by the
+owner for all of them; ``outputs``, a dict the owner keeps, holds static
+output buffers shared by output position, shape and dtype: the graph ends
+by copying its results into them (made outside the pool, on the caller's
+stream, after the warm-up shows their shapes). A later capture into a
+shared pool reuses the blocks that earlier captures freed, never the live
+static outputs of another graph, and a replay's outputs are cloned before
+the next replay may write those blocks again; with shared outputs nothing
+of a graph stays live in the pool, which then holds about one graph's
+working set, not one per graph. A failed capture leaves its pool unusable
+for another capture (PyTorch ends a pool's recording only when a capture
+ends well), so an owner takes a new pool after a ``CaptureError``.
 
 Every operand a captured kernel reads lives in the static buffers, the
 graph's pool or the model's parameters and buffers, whose addresses the
@@ -137,6 +160,37 @@ class _Recording:
         _local.record = None
 
 
+def shared_buffers(store: dict, outs) -> tuple:
+    """A buffer of each output's position, shape and dtype from ``store``,
+    made there at its first use, on the current stream."""
+    outs = (outs,) if isinstance(outs, torch.Tensor) else tuple(outs)
+    bufs = []
+    for i, t in enumerate(outs):
+        key = (i, tuple(t.shape), t.dtype, t.device)
+        if key not in store:
+            store[key] = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+        bufs.append(store[key])
+    return tuple(bufs)
+
+
+def copied_into(fn: Callable, bufs: tuple) -> Callable:
+    """``fn`` whose results (a tensor or a tuple) are copied into ``bufs``,
+    which it returns in their place."""
+    def copied(*inputs):
+        outs = fn(*inputs)
+        single = isinstance(outs, torch.Tensor)
+        got = tuple(b.copy_(o) for b, o in zip(bufs, (outs,) if single else outs))
+        return got[0] if single else got
+    return copied
+
+
+def _not_nested(what: str) -> None:
+    if getattr(_local, "record", None) is not None:
+        raise CaptureError(f"a {what} was made inside another's warm-up or capture on this "
+                           f"thread: one capture cannot hold another (call the eager function "
+                           f"there)")
+
+
 class CapturedCall:
     """``fn(*inputs)`` of CUDA tensors, captured as a CUDA graph from
     ``examples`` (see the module's docstring). ``fn`` returns a tensor or a
@@ -150,21 +204,36 @@ class CapturedCall:
 
     _keys = None            # the output dict's keys, where ``fn`` returns a dict
 
-    def __init__(self, fn: Callable, *examples: torch.Tensor):
-        self._static_inputs(examples)
-        for buf, x in zip(self._inputs, examples):
-            buf.copy_(x)
+    def __init__(self, fn: Callable, *examples: torch.Tensor, pool=None, inputs=None,
+                 outputs=None):
+        _not_nested(type(self).__name__)
+        self._static_inputs(examples, inputs)
+        self._pool, self._shared_outputs = pool, outputs
+        self._copy_in(examples)
         with _CAPTURE_LOCK:
             outs = self._warm_up_and_capture(fn, self._inputs[0].device)
         self._set_outputs(outs)
 
-    def _static_inputs(self, examples) -> None:
+    @staticmethod
+    def new_pool():
+        """A memory pool for ``pool``, to share among graphs that replay one
+        at a time on one stream."""
+        return torch.cuda.graph_pool_handle()
+
+    def _static_inputs(self, examples, inputs=None) -> None:
         if not examples or any(not isinstance(x, torch.Tensor) or x.device.type != "cuda"
                                for x in examples):
             raise ValueError(f"{type(self).__name__} takes one or more example tensors on a "
                              f"CUDA device")
         device = examples[0].device
-        self._inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=device) for x in examples)
+        if inputs is None:
+            inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=device) for x in examples)
+        if len(inputs) != len(examples) or any(
+                b.device != device or b.shape != x.shape or b.dtype != x.dtype
+                for b, x in zip(inputs, examples)):
+            raise ValueError(f"{type(self).__name__}: the static inputs given do not match the "
+                             f"examples' shapes, dtypes and device")
+        self._inputs = tuple(inputs)
 
     def _set_outputs(self, outs) -> None:
         """The static outputs of a tensor, a tuple or a dict of tensors."""
@@ -186,13 +255,15 @@ class CapturedCall:
         warm: list = []
         try:
             with _Recording(warm), torch.cuda.stream(stream):
-                fn(*self._inputs)
+                outs = fn(*self._inputs)
         except Exception as e:
             e.add_note(f"CapturedCall: raised in the warm-up, before any capture "
                        f"(kernels launched: {self._describe(warm)})")
             raise
         stream.synchronize()
         self.warmup_ms = (time.perf_counter() - t0) * 1e3
+        if self._shared_outputs is not None:
+            fn = copied_into(fn, shared_buffers(self._shared_outputs, outs))
         return self._capture(fn, stream, device)
 
     def _capture(self, fn: Callable, stream: torch.cuda.Stream, device: torch.device):
@@ -202,7 +273,7 @@ class CapturedCall:
         record: list = []
         with _Recording(record), torch.cuda.stream(stream), _no_collection():
             reserved = torch.cuda.memory_reserved(device)
-            self.graph.capture_begin(capture_error_mode="thread_local")
+            self.graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
             try:
                 outs = fn(*self._inputs)
             except BaseException as e:
@@ -241,7 +312,9 @@ class CapturedCall:
             if tuple(x.shape) != tuple(buf.shape) or x.dtype != buf.dtype:
                 raise ValueError(f"{type(self).__name__} was captured for {tuple(buf.shape)} "
                                  f"{buf.dtype}, got {tuple(x.shape)} {x.dtype}")
-            buf.copy_(x)
+            # from pinned memory the copy is ordered on the stream, and the
+            # host goes on; from pageable memory it waits
+            buf.copy_(x, non_blocking=x.device.type != "cpu" or x.is_pinned())
 
     def __call__(self, *inputs):
         self._copy_in(inputs)
@@ -281,6 +354,7 @@ class CapturedStep(CapturedCall):
     def __init__(self, fn: Callable, *examples: torch.Tensor):
         self._static_inputs(examples)
         self._fn, self.graph, self._error = fn, None, None
+        self._pool = self._shared_outputs = None
 
     def __call__(self, *inputs):
         if self._error is not None:
@@ -288,6 +362,7 @@ class CapturedStep(CapturedCall):
         if self.graph is not None:
             return super().__call__(*inputs)
         self._copy_in(inputs)
+        _not_nested(type(self).__name__)
         with _CAPTURE_LOCK:
             try:
                 return self._warm_up_and_capture(self._fn, self._inputs[0].device)
