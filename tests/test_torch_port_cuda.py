@@ -1524,6 +1524,56 @@ def test_captured_step_is_bit_equal_to_eager(cuda, head):
     assert call.pool_bytes > 0 and call.launches == {}       # no kernel of the port
 
 
+STEP_MARKS = ["step_forward", "step_loss", "step_backward", "step_optimizer", "step_ema",
+              "step_end"]
+AUG_MARKS = ["aug_input", "aug_single", "aug_mosaic", "aug_enhance", "aug_mix", "aug_end"]
+
+
+def test_marks_split_the_captured_step_and_augmentation(cuda):
+    """The phase marks (``utils/trace``) inside the captured augmentation
+    (tiles, T = 4, every op on) and step of yolov7-tiny: both replay bit
+    for bit as their eager forms; a profiler window over three replays of
+    each, enqueued while the card is held, finds the augmentation's six
+    marks and then the step's six, once a replay, in order; the step's
+    five phases cover 95-100% of the CUDA-event time of the same step
+    calls (the rest is the copies in and the clones out). The tiles are on
+    the card, as the stager leaves them: a pageable copy would make the
+    host wait at each call, and the card then idles inside the events while
+    the host launches the next graph under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from yolo_continuous_tpu_torch.utils import trace
+    twins = _twins(cuda, dict(_yolov7_tiny_cfg(), batch_size=4))
+    tr, state = twins[:2]
+    tr.aug_cfg = tr.aug_cfg._replace(**AUG_ALL_ON)
+    mosaic, mixup = np.array([True, False, True, True]), np.array([True, True, False, True])
+    tiles, metas, boxes, masks = _aug_inputs(4, 4)
+    batch = (tiles.to(cuda), metas.numpy(), boxes.numpy(), masks.numpy(), mosaic, mixup)
+    augment, draw = tr.jitted_augment(), tr.draw(0, 4, mosaic, mixup)
+    assert augment == tr._replayed_augment
+    _augment_bit_equal(augment, tr.augment, draw, batch)
+    _steps_bit_equal(twins, [augment(draw, batch)] * 2, RAMP[:2])
+    step = tr.jitted_train_step()
+    torch.cuda.synchronize()
+    pairs = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int(2e8))        # about 0.1 s: the host enqueues all three first
+        for i, hyper in enumerate(RAMP[2:5]):
+            images, labels, lmask = augment(tr.draw(i + 1, 4, mosaic, mixup), batch)
+            b, c = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            b.record()
+            step(state, images, labels, lmask, *hyper)
+            c.record()
+            pairs.append((b, c))
+        torch.cuda.synchronize()
+    marks = trace.device_marks(prof)
+    assert [n for n, _ in marks] == (AUG_MARKS + STEP_MARKS) * 3
+    phases = trace.phases(marks, "step")
+    assert list(phases) == STEP_MARKS[:-1]
+    assert list(trace.phases(marks, "aug")) == AUG_MARKS[:-1]
+    step_ms = sum(b.elapsed_time(c) for b, c in pairs) / len(pairs)
+    assert 0.95 * step_ms <= sum(phases.values()) <= step_ms, (phases, step_ms)
+
+
 @pytest.mark.parametrize("bn_remat,remat", [(True, None), (False, "full"), (False, "conv"),
                                             (False, "dots")])
 def test_captured_step_under_remat_is_bit_equal(cuda, bn_remat, remat):

@@ -115,7 +115,7 @@ CONF, IOU, MAX_DET = 0.25, 0.45, 300
 NVAR = 4                   # rotating infer inputs
 NMS_CALLS = 40
 NMS_ROWS = 25200           # a 640 px plan's candidates
-KERNEL_SOURCES = ("nms", "decode", "fused_conv")      # K1, K3, K5: what the sections launch
+KERNEL_SOURCES = ("nms", "decode", "fused_conv", "marks")   # K1, K3, K5, the phase marks
 
 
 def plan_cfg(size, extra_cfg=None, **keys):

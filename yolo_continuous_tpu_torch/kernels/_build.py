@@ -65,6 +65,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "staging": {
         "stage_letterbox": (_P, _P, _P, _I, _I, _P),
     },
+    "marks": {
+        "mark": (_I, _P),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from .enhance import (EnhanceDraw, PerspectiveCfg, draw_enhance, draw_perspective,
                       random_equalize, random_flip, random_perspective)
 
@@ -612,7 +613,15 @@ def augment_batch(
     tiles' device, from the parameters and flags ``draw`` (``draw_batch``).
 
     Eval mode (train=False, no draw) is the deterministic letterbox branch
-    (yolo_dataset_git.py:118-147): the staging canvas is that output."""
+    (yolo_dataset_git.py:118-147): the staging canvas is that output. A
+    train-mode call marks its phases (``utils/trace``)."""
+    if train:
+        trace.mark("aug_input", tiles.device)
+    return _augment(draw, tiles, metas, boxes, bmasks, cfg, max_gt, train)
+
+
+def _augment(draw, tiles, metas, boxes, bmasks, cfg, max_gt, train):
+    """``augment_batch`` after its ``aug_input`` mark."""
     T = tiles.shape[1]
     tiles_f = tiles.float()
     if not train:
@@ -627,11 +636,14 @@ def augment_batch(
         bx, bm = _cap_boxes(torch.stack([x1, y1, x2, y2, bx[..., 4]], -1), ok, max_gt)
         return tiles_f[:, 0] * _INV_255, boxes_to_labels(bx, bm, cfg.size), bm
 
+    dev = tiles.device
+    trace.mark("aug_single", dev)
     s_img, s_bx, s_bm = augment_single(draw.single, tiles_f[:, 0], metas[:, 0], boxes[:, 0],
                                        bmasks[:, 0], cfg)
     # the mixup partner also sees the enhance ops (its own draws)
     p_img, p_bx, p_bm = _post_enhance(draw.partner, s_img, s_bx, s_bm, cfg)
     img, bx, bm = s_img, s_bx, s_bm
+    trace.mark("aug_mosaic", dev)
     if T == 4:
         bx, bm = _pad_boxes(s_bx, s_bm, 4 * s_bx.shape[1])
         sel = draw.mosaic_idx
@@ -641,10 +653,12 @@ def augment_batch(
             img = img.index_copy(0, sel, m_img)
             bx = bx.index_copy(0, sel, m_bx)
             bm = bm.index_copy(0, sel, m_bm)
+    trace.mark("aug_enhance", dev)
     img, bx, bm = _post_enhance(draw.post, img, bx, bm, cfg)
 
     # mixup; yolo_dataset_git.py:393-401, with the batch neighbour's
     # single-path augment as the "one extra random image" (:59-62)
+    trace.mark("aug_mix", dev)
     mix = draw.mixup
     r_img = torch.roll(p_img, 1, 0)
     r_bx, r_bm = _pad_boxes(torch.roll(p_bx, 1, 0), torch.roll(p_bm, 1, 0), bx.shape[1])
@@ -656,7 +670,9 @@ def augment_batch(
         img, bx, bm = copy_paste_batch(draw.paste, img, bx, bm)
 
     bx, bm = _cap_boxes(bx, bm, max_gt)
-    return img * _INV_255, boxes_to_labels(bx, bm, cfg.size), bm
+    out = img * _INV_255, boxes_to_labels(bx, bm, cfg.size), bm
+    trace.mark("aug_end", dev)
+    return out
 
 
 def augment_batch_from_pool(
@@ -673,7 +689,10 @@ def augment_batch_from_pool(
     """``augment_batch`` fed from a device-resident staged-image pool
     (``YoloDataset.staged_pool``): a step ships only (B, T) tile indices
     beside the draws, not B*T*S*S*3 pixel bytes. Gather, then the same
-    math as ``augment_batch`` on host-assembled tiles."""
+    math as ``augment_batch`` on host-assembled tiles; the gather is part
+    of the ``aug_input`` phase."""
+    if train:
+        trace.mark("aug_input", pool_tiles.device)
     idx = tile_idx.long()
-    return augment_batch(draw, pool_tiles[idx], pool_metas[idx], pool_boxes[idx],
-                         pool_masks[idx], cfg=cfg, max_gt=max_gt, train=train)
+    return _augment(draw, pool_tiles[idx], pool_metas[idx], pool_boxes[idx], pool_masks[idx],
+                    cfg, max_gt, train)

@@ -114,6 +114,7 @@ from ..ops.augment import (BatchDraw, aug_config_from_plan, augment_batch,
 from ..ops.schedules import LRSchedule
 from ..parallel.mesh import sum_gradients, use_mesh
 from ..tools.jax_weights import state_dict_from_jax
+from ..utils import trace
 from ..utils.capture import CapturedCall, CapturedStep, CaptureError
 from .checkpoint import (TRAIN_SUFFIX, jax_weights, load_checkpoint, read_jax_msgpack,
                          save_checkpoint, serving_state_dict, train_checkpoint_path, try_load)
@@ -251,19 +252,28 @@ class Trainer:
         """The device half of a step, in place on ``state``'s tensors: forward
         in train mode, loss, backward, the optimizer and the EMA, with the
         scalars of ``hyper``. What a captured step records; the loss and its
-        parts, detached."""
+        parts, detached. Each phase starts with its mark (``utils/trace``)."""
+        dev = self.device
+        trace.mark("step_forward", dev)
         x, labels, lmask = self._inputs(images, labels, lmask)
         model, opt = state["model"], state["opt"]
         model.train()
         with use_mesh(self.mesh):     # the backward too: a recomputed forward reduces
-            loss, parts = self.loss_from_outputs(model(x), labels, lmask)
+            outs = model(x)
+            trace.mark("step_loss", dev)
+            loss, parts = self.loss_from_outputs(outs, labels, lmask)
             opt.zero_grad(set_to_none=True)
+            trace.mark("step_backward", dev)
             loss.backward()
         if self.mesh is not None:
+            trace.mark("step_sync", dev)
             sum_gradients(model, self.mesh)
             loss, parts = self._global_parts(loss, parts)
+        trace.mark("step_optimizer", dev)
         opt.step(hyper)
+        trace.mark("step_ema", dev)
         state["ema"].apply(model, hyper[3:])
+        trace.mark("step_end", dev)
         return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
 
     def train_step(self, state, images, labels, lmask, lr_w: float, lr_b: float, mom: float):

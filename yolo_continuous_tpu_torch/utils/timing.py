@@ -64,7 +64,14 @@ def time_fn(fn, *args, iters: int = 10, warmup: int = 1) -> float:
 @contextlib.contextmanager
 def profile_trace(logdir: str = "runs/torch-trace"):
     """``torch.profiler`` over the block (CPU, and CUDA where there is a
-    card); writes ``<logdir>/trace.json``, a Chrome trace."""
+    card); writes ``<logdir>/trace.json``, a Chrome trace.
+
+    The train step's and the augmentation's phases show there as kernels
+    named ``mark_<phase>_kernel`` (``utils/trace``), among the captured
+    graphs' other kernels on the stream's row: a phase runs from its mark's
+    ``ts`` to the next mark's, so searching the trace for ``mark_`` gives
+    each step's forward, loss, backward, optimizer and EMA, and each
+    augmentation's input, single, mosaic, enhance and mix phases."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
