@@ -222,7 +222,8 @@ failure exits non-zero before the result line.
    256 + 32 JPEGs the phase writes (640 x 480 and 480 x 640 with a few 1280
    x 720, luma grain) plus a grayscale JPEG and a PNG named ``.jpg``, which
    must take the cv2 fallback: counters at 0 around the run, which must
-   launch ``stage_letterbox``, K3 and K1; each step's data wait, step and
+   launch ``stage_letterbox``, K3 and K1, and ``warp_tiles`` once or twice a
+   step; each step's data wait, step and
    epoch time. Then the train loader's staging of one epoch through the
    stager and through cv2 (``use_native=False``), in 3 alternating pairs,
    and ``staged_pool`` of the train set each way, in 2. Prints a
@@ -274,8 +275,12 @@ on phase 8's serving window, ``launches_parallel`` on phase 9's counted
 calls, ``launches_native_staging`` on phase 10's run, ``launches_bench`` on
 phase 11's calls; K3's 4-level time and bound at the P6 shape; K5's time,
 bound and error at batch 1 (``*_bs1``); a sixth entry, ``stage_letterbox``, whose
-``launches`` are phase 10's run's, its main path) and the card's name and
-power limit; the last line is ``{"ok": true, "device": {...}}``.
+``launches`` are phase 10's run's, its main path; a seventh, ``warp_tiles``,
+with the ``warp_tiles`` JSON line's record, printed after phase 10 by
+``warp_tiles_alone``: the kernel against the plain augmentation at 32
+singles and 32 mosaics of 640, each path's ms, plain ms and byte bound, and
+``launches`` from phase 10's run) and the card's name and power limit; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 import copy
 import json
@@ -918,9 +923,10 @@ def counters():
     from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda
     from yolo_continuous_tpu_torch.kernels.fused_conv import fused_pointwise_conv_cuda
     from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
+    from yolo_continuous_tpu_torch.kernels.augment import warp_tiles
     from yolo_continuous_tpu_torch.kernels.staging import stage_letterbox
     return (decode_outputs_cuda, nms_suppress, nms_suppress_tiled, decode_outputs_bin_cuda,
-            fused_pointwise_conv_cuda, stage_letterbox)
+            fused_pointwise_conv_cuda, stage_letterbox, warp_tiles)
 
 
 def drive_path(label, det, images, max_dets):
@@ -1593,6 +1599,17 @@ def augment_bit_equal(label, got, want) -> None:
         fail(f"{label}: the compiled augmentation differs from the eager one in {bad}")
 
 
+def warp_launches_in_graphs(label, trainer, before, train: bool, T: int, n: int) -> None:
+    """Every augmentation graph made since ``before`` (a set of its keys)
+    holds the banded kernel once a path: the single path, and the mosaic
+    where T = 4 and n > 0 samples are flagged; none in eval mode."""
+    want = {"warp_tiles": 1 + int(T == 4 and n > 0)} if train else {}
+    for key in set(trainer._aug_graphs) - before:
+        got = trainer._aug_graphs[key].launches
+        if got != want:
+            fail(f"{label}: an augmentation graph launches {got}, not {want}")
+
+
 def augment_equal_passes(trainer, ds, pool, val_ds=None) -> dict:
     """The compiled augmentation (``trainer.jitted_augment()``) against the
     eager one on every batch of two epochs from the device pool, and with
@@ -1615,6 +1632,8 @@ def augment_equal_passes(trainer, ds, pool, val_ds=None) -> dict:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         augment_bit_equal(label, got, trainer.augment(draw, batch, train, pool=src))
+        warp_launches_in_graphs(label, trainer, before, train, batch[0].shape[1],
+                                int(batch[-2].sum()) if train else 0)
         for key in set(trainer._aug_graphs) - before:
             call = trainer._aug_graphs[key]
             first_calls.append(dict(ms=ms, warmup_ms=call.warmup_ms, capture_ms=call.capture_ms,
@@ -1664,7 +1683,8 @@ def augment_alone(trainer, train_ann: str, cfgs=None, val_ann=None, passes=True)
     calls between CUDA events at the host's pace (median, min, max), the
     host's clock around one call, device ms with the stream held, and a
     profiler window of 3 calls: kernel ms, kernels and host launches a call.
-    The compiled one must make at most 6 host launches a call. With
+    The compiled one must make at most 6 host launches a call, and each of
+    its graphs launch ``warp_tiles`` once a path (``warp_launches_in_graphs``). With
     ``cfgs`` (name -> AugConfig), a record a config from one staged pool."""
     import torch
     from yolo_continuous_tpu_torch.data.dataset import YoloDataset, load_annotation_file
@@ -1687,6 +1707,10 @@ def augment_alone(trainer, train_ann: str, cfgs=None, val_ann=None, passes=True)
         batch = next(ds.epoch_plans(BS, plan.shuffle, plan.drop_last))
         draw = trainer.draw(0, batch[0].shape[1], *batch[-2:])
         compiled = trainer.jitted_augment()
+        before = set(trainer._aug_graphs)
+        compiled(draw, batch, True, pool=pool)
+        warp_launches_in_graphs("augment alone", trainer, before, True, batch[0].shape[1],
+                                int(batch[-2].sum()))
         fns = {"captured": lambda: compiled(draw, batch, True, pool=pool),
                "eager": lambda: trainer.augment(draw, batch, True, pool=pool)}
         ms, host = {k: [] for k in fns}, {k: [] for k in fns}
@@ -2793,7 +2817,7 @@ def phase_serve():
         batches = sum(after[n]["batches"] - before[n]["batches"] for n in after)
         want = {"decode_outputs_cuda": batches, "nms_suppress": batches,
                 "nms_suppress_tiled": 0, "decode_outputs_bin_cuda": 0,
-                "fused_pointwise_conv_cuda": 0, "stage_letterbox": 0}
+                "fused_pointwise_conv_cuda": 0, "stage_letterbox": 0, "warp_tiles": 0}
         if launches != want:
             fail(f"serve: launches {launches} over {batches} batches, expected {want} "
                  "(K3 in its TMA form and K1 once a batch)")
@@ -3548,6 +3572,9 @@ def phase_native_staging():
     for name in ("stage_letterbox", "decode_outputs_cuda", "nms_suppress"):
         if launches[name] == 0:
             fail(f"native_staging: Trainer.run never launched {name}: {launches}")
+    if not state["step"] <= launches["warp_tiles"] <= 2 * state["step"]:
+        fail(f"native_staging: {launches['warp_tiles']} warp_tiles launches in "
+             f"{state['step']} steps, not one or two a step")
     m = st["map"]
     if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()):
         fail(f"native_staging: mAP out of [0, 1]: {m}")
@@ -3673,7 +3700,8 @@ def bench_calls(total) -> tuple:
              "infer_img_s_int8": (bench.infer_step(det_q), x16, BS)}
     want = {key: {"decode_outputs_cuda": int(bs is not None), "nms_suppress": 1,
                   "fused_pointwise_conv_cuda": 24 if key == "infer_1_ms_fused_tails" else 0,
-                  "nms_suppress_tiled": 0, "decode_outputs_bin_cuda": 0, "stage_letterbox": 0}
+                  "nms_suppress_tiled": 0, "decode_outputs_bin_cuda": 0, "stage_letterbox": 0,
+                  "warp_tiles": 0}
             for key, (_, _, bs) in calls.items()}
     zero = torch.zeros((), device="cuda")
     per_call = {}
@@ -3756,6 +3784,94 @@ def bench_calls(total) -> tuple:
           f"(bound {k5['bound_ms']:.4f}, plain {k5['plain_ms']:.4f}), max abs err "
           f"{k5['max_abs_err']:.3g}", flush=True)
     return per_call, checks
+
+
+def warp_tiles_alone() -> dict:
+    """``kernels/augment.py::warp_tiles`` at the training cells' shape: 32
+    singles and 32 mosaics at 640 from a pool of 128 letterboxed photo-like
+    canvases (640 x 480, 480 x 640, 640 x 360, 1280 x 720), each row's tiles
+    through a (32, 4) index, with ``draw_batch``'s draws at enhance.yaml's
+    gains, against the plain path (``augment_single``, ``augment_mosaic``:
+    the matrix products, flips, quadrant select and ``random_hsv``) on the
+    same card and inputs. It fails unless the kernel equals the plain path
+    wherever that reads only the fill, at most 1e-4 of the values lie more
+    than 1/255 apart on 0..1 (the cells' ``aug_image_off`` limit) and the
+    widest gap away from hue ties (a red pixel whose green and blue lie
+    within 1e-3) is at most 2e-3 on 0..255; and unless every call launched
+    the kernel once. Each path's device ms (CUDA events, stream held)
+    beside its plain version's and its byte bound (u8 canvases read, one a
+    single and four a mosaic, fp32 images written, once): the kernels
+    line's ``warp_tiles`` row."""
+    import cv2
+    import torch
+    from yolo_continuous_tpu_torch.kernels.augment import warp_tiles
+    from yolo_continuous_tpu_torch.ops import augment as aug
+    n, pool_n, mb = 32, 128, 8
+    rs = np.random.RandomState(21)
+    pool = np.full((pool_n, SIZE, SIZE, 3), 128, np.uint8)
+    metas = np.zeros((pool_n, 5), np.float32)
+    for i in range(pool_n):
+        h, w = ((480, 640), (640, 480), (360, 640), (720, 1280))[i % 4]
+        r = min(SIZE / w, SIZE / h)
+        nw, nh = int(w * r), int(h * r)
+        ox, oy = (SIZE - nw) // 2, (SIZE - nh) // 2
+        pool[i, oy:oy + nh, ox:ox + nw] = cv2.resize(photo_like(rs, w, h, GRAIN)[0], (nw, nh))
+        metas[i] = [w, h, r, ox, oy]
+    pool = torch.from_numpy(pool).cuda()
+    idx = torch.from_numpy(rs.permutation(pool_n).reshape(n, 4)).cuda()
+    metas = torch.from_numpy(metas).cuda()[idx]
+    cfg = aug.AugConfig(size=SIZE, hue=0.015)
+    gains = (cfg.hue, cfg.sat, cfg.val)
+    draw = aug.draw_batch(torch.Generator().manual_seed(21), cfg, n, 4, mb, np.ones(n, bool),
+                          np.zeros(n, bool)).to("cuda")
+    z = torch.zeros((n, 4, mb, 5), device="cuda")
+    zm = z[..., 0] > 0
+    rows = torch.arange(n, device="cuda")
+    single = aug._single_geometry(draw.single, metas[:, 0], z[:, 0], zm[:, 0], cfg)[0][:, None]
+    mosaic = aug._mosaic_geometry(draw.mosaic, metas, z, zm, cfg)[:2]
+    paths = {
+        "single": (1, draw.single, lambda out: warp_tiles(
+            pool, idx, single, draw.single.flip[:, None].contiguous(), draw.single.hsv, gains,
+            rows, out), lambda t, p: aug.augment_single(p, t[:, 0], metas[:, 0], z[:, 0],
+                                                        zm[:, 0], cfg)[0]),
+        "mosaic": (4, draw.mosaic, lambda out: warp_tiles(
+            pool, idx, mosaic[0], draw.mosaic.flip, draw.mosaic.hsv, gains, rows, out,
+            mosaic[1]), lambda t, p: aug.augment_mosaic(p, t, metas, z, zm, cfg)[0]),
+    }
+    tiles = pool[idx].float()
+    rec = {}
+    for name, (q, p, kernel, plain) in paths.items():
+        out = torch.full((n, SIZE, SIZE, 3), float("nan"), device="cuda")
+        calls, n0 = [0], warp_tiles.launches
+
+        def launch():
+            calls[0] += 1
+            return kernel(out)
+        got = launch().clone()
+        want = plain(tiles, p)
+        flat = p._replace(hsv=torch.zeros_like(p.hsv))
+        fill = (plain((tiles - 128).abs() + 128, flat) == 128).all(-1)
+        r, g, b = plain(tiles, flat).unbind(-1)
+        tie = ((g - b).abs() <= 1e-3) & (r >= torch.maximum(g, b) - 1e-3)
+        off = ((got - want).abs() > 1.0).float().mean().item()
+        gap = (got - want).abs().amax(-1)[~tie].max().item()
+        fill_exact = bool(torch.equal(got[fill], want[fill]))
+        if not (bool(torch.isfinite(got).all()) and fill_exact and off <= 1e-4 and gap <= 2e-3):
+            fail(f"warp_tiles {name}: against the plain path, fill exact {fill_exact}, "
+                 f"off share {off} (limit 1e-4), gap away from hue ties {gap} (limit 2e-3)")
+        ms = cuda_ms(launch)
+        plain_ms = cuda_ms(lambda: plain(tiles, p), iters=5, warmup=1, hold=False)
+        launches = warp_tiles.launches - n0
+        if launches != calls[0]:
+            fail(f"warp_tiles {name}: {launches} launches in {calls[0]} calls")
+        moved = (q + 4) * n * SIZE * SIZE * 3        # u8 canvases read, fp32 images written
+        rec[name] = dict(shape=f"{n} x {q} tile(s) @ {SIZE}, pool {pool_n}", ms=ms,
+                         plain_ms=plain_ms, bound_ms=moved / HBM_BYTES_S * 1e3, bound_by="bytes",
+                         launches=launches, calls=calls[0], fill_share=fill.float().mean().item(),
+                         fill_exact=fill_exact, off_share=off, max_gap_off_ties=gap,
+                         tie_share=tie.float().mean().item())
+    print(json.dumps({"warp_tiles": rec}), flush=True)
+    return rec
 
 
 def phase_bench(beside=None):
@@ -3843,6 +3959,7 @@ def main() -> None:
     launches_serve = timed("serve", phase_serve())
     launches_parallel = timed("parallel_and_tools", phase_parallel_and_tools())
     launches_native, stager = timed("native_staging", phase_native_staging())
+    warps = timed("warp_tiles", warp_tiles_alone())
     launches_bench, k5_bs1 = timed("bench", phase_bench(dict(infer_img_s=main_img_s,
                                                              train_img_s=train_img_s)))
     print(json.dumps({"phase_seconds": dict(seconds, total=sum(seconds.values()))}),
@@ -3902,6 +4019,25 @@ def main() -> None:
                         launches_parallel=launches_parallel[counter],
                         launches_native_staging=launches_native[counter],
                         launches_bench=launches_bench[counter], **stager))
+    # the augmentation's warps replace no TPU kernel either; their main path
+    # is training, phase 10's Trainer.run (one launch a path a step)
+    counter = "warp_tiles"
+    kernels.append(dict(name="warp_tiles", route="cuda",
+                        source="yolo_continuous_tpu_torch/csrc/augment.cu",
+                        replaces="the warps of yolo_continuous_tpu/ops/augment.py::augment_batch "
+                                 "(jax.image.scale_and_translate)",
+                        launches=launches_native[counter],
+                        launches_main_paths=launches[counter],
+                        launches_validate_map=launches_validate_map[counter],
+                        launches_model_zoo=launches_model_zoo[counter],
+                        launches_serve=launches_serve[counter],
+                        launches_parallel=launches_parallel[counter],
+                        launches_native_staging=launches_native[counter],
+                        launches_bench=launches_bench[counter],
+                        **{k: warps["single"][k] + warps["mosaic"][k]
+                           for k in ("ms", "plain_ms", "bound_ms")},
+                        bound_by="bytes", library_ms=None, single=warps["single"],
+                        mosaic=warps["mosaic"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)

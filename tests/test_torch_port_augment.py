@@ -306,3 +306,29 @@ def test_perspective_and_the_rest_of_enhance_raise():
     assert out[0].shape == (2, S, S, 3)
     out = PE.letter_box(torch.tensor([True, False]), img, bx, bm, 32)
     assert out[0].shape == (2, 32, 32, 3)
+
+
+def test_cpu_tensors_take_the_plain_path(monkeypatch):
+    """On the CPU the warps stay the plain form's (``augment_single`` and
+    ``augment_mosaic``: the matrix products, flips, quadrant select and
+    ``random_hsv``), from host tiles and from the pool alike: nothing reaches
+    the kernel's wrapper, and the mosaic rows are the plain mosaic's."""
+    def refuse(*args, **kw):
+        raise AssertionError("a CPU tensor reached warp_tiles")
+    monkeypatch.setattr(P, "warp_tiles", refuse)
+    tiles, metas, boxes, masks = map(torch.from_numpy, _inputs(3, 4, seed=15))
+    mosaic, mixup = np.array([True, False, True]), np.zeros(3, bool)
+    cfg = P.AugConfig(size=S)
+    draw = P.draw_batch(torch.Generator().manual_seed(2), cfg, 3, 4, MB, mosaic, mixup)
+    got = P.augment_batch(draw, tiles, metas, boxes, masks, cfg=cfg, max_gt=2 * MB)
+    single = P.augment_single(draw.single, tiles[:, 0].float(), metas[:, 0], boxes[:, 0],
+                              masks[:, 0], cfg)[0]
+    sel = draw.mosaic_idx
+    mos = P.augment_mosaic(draw.mosaic, tiles[sel].float(), metas[sel], boxes[sel], masks[sel],
+                           cfg)[0]
+    assert torch.equal(got[0], single.index_copy(0, sel, mos) * P._INV_255)
+    pool = tuple(a.reshape(12, *a.shape[2:]) for a in (tiles, metas, boxes, masks))
+    from_pool = P.augment_batch_from_pool(draw, *pool, torch.arange(12).reshape(3, 4), cfg=cfg,
+                                          max_gt=2 * MB)
+    for g, w in zip(from_pool, got):
+        assert torch.equal(g, w)

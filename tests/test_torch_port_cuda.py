@@ -1,4 +1,5 @@
-"""Kernels K1-K5 and the JPEG stager on the card against their plain PyTorch versions.
+"""Kernels K1-K5, the JPEG stager and the augmentation's warps on the card against their plain
+PyTorch versions.
 
 These need an NVIDIA GPU with nvcc (sm_90a) and skip elsewhere. Run them on
 the GPU machine with:
@@ -23,6 +24,7 @@ from _torch_port import (ANCHORS as ANCHOR_ROWS, FUSE_NET, YOLOV7_640_FUSED_TAIL
 from yolo_continuous_tpu_torch.config.plan import TrainPlan
 from yolo_continuous_tpu_torch.detect_api import Detector
 from yolo_continuous_tpu_torch.kernels import bin_decode, decode
+from yolo_continuous_tpu_torch.kernels.augment import warp_tiles
 from yolo_continuous_tpu_torch.kernels.bin_decode import decode_outputs_bin_cuda
 from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda
 from yolo_continuous_tpu_torch.kernels.decode import form_for as decode_form_for
@@ -651,6 +653,181 @@ def test_pool_staged_on_the_card(cuda):
                              max_gt=16)
     for g, h in zip(got, host):
         assert g.device.type == cuda.type and torch.equal(g, h)
+
+
+# the banded warp kernel (kernels/augment.py::warp_tiles) against the plain
+# path (warp_canvas's matrix products, the flip or quadrant select,
+# random_hsv) on the same card
+
+def _letterboxed(B, T, S, seed):
+    """(B, T, S, S, 3) u8 staging canvases of random images of mixed
+    shapes, letterboxed on fill 128 (so most images end before an edge),
+    with flat patches (HSV ties), and their metas [iw, ih, r, ox, oy]."""
+    rs = np.random.RandomState(seed)
+    tiles = np.full((B, T, S, S, 3), 128, np.uint8)
+    metas = np.zeros((B, T, 5), np.float32)
+    for b in range(B):
+        for t in range(T):
+            iw, ih = (int(v * S / 64) for v in rs.randint(30, 100, 2))
+            r = min(S / iw, S / ih)
+            nw, nh = max(int(iw * r), 1), max(int(ih * r), 1)
+            ox, oy = (S - nw) // 2, (S - nh) // 2
+            img = rs.randint(0, 255, (nh, nw, 3)).astype(np.uint8)
+            img[nh // 3:, :nw // 3] = rs.randint(0, 255, 3)
+            img[:nh // 4, nw // 2:] = rs.randint(0, 255)
+            tiles[b, t, oy:oy + nh, ox:ox + nw] = img
+            metas[b, t] = [iw, ih, r, ox, oy]
+    return torch.from_numpy(tiles), torch.from_numpy(metas)
+
+
+def _u(rs, *shape):
+    return torch.from_numpy(rs.uniform(-1, 1, shape).astype(np.float32))
+
+
+def _single_draw(rs):
+    """Scale 0.25 and 2.0 (the range's ends), each with aspect jitter 0.7 /
+    1.3 and 1.3 / 0.7, both flips."""
+    f = lambda v: torch.tensor(v, dtype=torch.float32)          # noqa: E731
+    return aug.SingleDraw(ar=f([[0.7, 1.3], [1.3, 0.7], [0.7, 1.3], [1.3, 0.7]]),
+                          scale=f([0.25, 0.25, 2.0, 2.0]), dxy=f(rs.rand(4, 2)),
+                          flip=torch.tensor([False, True, True, False]), hsv=_u(rs, 4, 3))
+
+
+def _mosaic_draw(rs):
+    """Cuts at 0.3 and 0.7 in both axes, tile scales 0.4 and 1.0 (the
+    range's ends) with aspect jitter 0.7 / 1.3, every tile both flipped and
+    not across the samples."""
+    f = lambda v: torch.tensor(v, dtype=torch.float32)          # noqa: E731
+    return aug.MosaicDraw(
+        offset=f([[0.3, 0.7], [0.7, 0.3], [0.3, 0.3], [0.7, 0.7]]),
+        ar=f([[[0.7, 1.3], [1.3, 0.7], [1.3, 0.7], [0.7, 1.3]]] * 4),
+        scale=f([[0.4, 1.0, 0.4, 1.0], [1.0, 0.4, 1.0, 0.4]] * 2),
+        flip=torch.tensor([[(b + q) % 2 == 0 for q in range(4)] for b in range(4)]),
+        hsv=_u(rs, 4, 3))
+
+
+def _plain_path(p, tiles, metas, cfg):
+    """The plain path of a single or mosaic draw on (B, T, S, S, 3) float canvases."""
+    if isinstance(p, aug.SingleDraw):
+        z = torch.zeros((4, 8, 5), device=tiles.device)
+        return aug.augment_single(p, tiles[:, 0], metas[:, 0], z, z[..., 0] > 0, cfg)[0]
+    z = torch.zeros((4, 4, 8, 5), device=tiles.device)
+    return aug.augment_mosaic(p, tiles, metas, z, z[..., 0] > 0, cfg)[0]
+
+
+def _kernel_path(p, tiles, metas, cfg, tile_idx=None):
+    """The kernel on (B, T, S, S, 3) u8 tiles under the identity index, or
+    with ``tile_idx`` on the pool ``tiles`` (N, S, S, 3)."""
+    gains = (cfg.hue, cfg.sat, cfg.val)
+    B, T = metas.shape[:2]
+    if tile_idx is None:
+        tiles, tile_idx = tiles.flatten(0, 1), torch.arange(B * T, device=metas.device).view(B, T)
+    out = torch.full((B, cfg.size, cfg.size, 3), float("nan"), device=metas.device)
+    rows = torch.arange(B, device=metas.device)
+    if isinstance(p, aug.SingleDraw):
+        z = torch.zeros((B, 8, 5), device=metas.device)
+        warp = aug._single_geometry(p, metas[:, 0], z, z[..., 0] > 0, cfg)[0]
+        return warp_tiles(tiles, tile_idx, warp[:, None], p.flip[:, None].contiguous(), p.hsv,
+                          gains, rows, out)
+    z = torch.zeros((B, 4, 8, 5), device=metas.device)
+    warps, cut = aug._mosaic_geometry(p, metas, z, z[..., 0] > 0, cfg)[:2]
+    return warp_tiles(tiles, tile_idx, warps, p.flip, p.hsv, gains, rows, out, cut)
+
+
+@pytest.mark.parametrize("path", ["single", "mosaic"])
+@pytest.mark.parametrize("S", [64, 640])
+def test_warp_kernel_matches_the_plain_path(cuda, path, S):
+    """Scales at both ends of each range, cuts at 0.3 and 0.7, every flip,
+    images that end before the canvas edge, B = 4, the HSV gains on. Where
+    the plain path reads only fill, the kernel equals it exactly (and reads
+    exactly 128 without HSV gains); the share of values more than 1/255
+    apart on 0..1 is at most 1e-4 (the cells' ``aug_image_off`` limit); away
+    from hue ties (a red pixel whose green and blue lie within 1e-3, where
+    the gain on the hue modulo 180 jumps) the widest gap is 2e-3 on 0..255."""
+    rs = np.random.RandomState(S)
+    cfg = aug.AugConfig(size=S)
+    tiles, metas = _letterboxed(4, 1 if path == "single" else 4, S, seed=S + 1)
+    p = _single_draw(rs) if path == "single" else _mosaic_draw(rs)
+    p = type(p)(*(v.to(cuda) for v in p))
+    tiles, metas = tiles.to(cuda), metas.to(cuda)
+    n0 = warp_tiles.launches
+    got = _kernel_path(p, tiles, metas, cfg)
+    torch.cuda.synchronize()
+    assert warp_tiles.launches == n0 + 1 and torch.isfinite(got).all()
+    want = _plain_path(p, tiles.float(), metas, cfg)
+    # the plain path without HSV gains: exactly 128 where it reads only the
+    # fill (a warp of |v - 128| + 128 is 128 only there), and the pixels it
+    # warps, whose hue ties are excluded from the widest gap
+    flat = p._replace(hsv=torch.zeros_like(p.hsv))
+    fill = (_plain_path(flat, (tiles.float() - 128).abs() + 128, metas, cfg) == 128).all(-1)
+    assert fill.float().mean() > 0.05 and (~fill).float().mean() > 0.05
+    assert torch.equal(got[fill], want[fill])
+    assert (_kernel_path(flat, tiles, metas, cfg)[fill] == 128).all()
+    off = ((got - want).abs() > 1.0).float().mean().item()
+    assert off <= 1e-4, off
+    r, g, b = _plain_path(flat, tiles.float(), metas, cfg).unbind(-1)
+    tie = ((g - b).abs() <= 1e-3) & (r >= torch.maximum(g, b) - 1e-3)
+    gap = (got - want).abs().amax(-1)[~tie].max().item()
+    assert gap <= 2e-3, gap
+
+
+@pytest.mark.parametrize("path", ["single", "mosaic"])
+def test_warp_kernel_reads_the_pool_through_the_index(cuda, path):
+    """The pool and a (B, T) index give what the assembled tiles give, bit
+    for bit; the mosaic writes only its rows of the batch's images."""
+    rs = np.random.RandomState(3)
+    cfg = aug.AugConfig(size=64)
+    pool, metas = _letterboxed(6, 1, 64, seed=4)
+    pool, metas = pool[:, 0].to(cuda), metas[:, 0].to(cuda)
+    idx = torch.tensor([[0, 3, 5, 1], [2, 2, 2, 2], [4, 0, 1, 5], [5, 4, 3, 2]], device=cuda)
+    p = _single_draw(rs) if path == "single" else _mosaic_draw(rs)
+    p = type(p)(*(v.to(cuda) for v in p))
+    got = _kernel_path(p, pool, metas[idx], cfg, tile_idx=idx)
+    want = _kernel_path(p, pool[idx].contiguous(), metas[idx], cfg)
+    assert torch.equal(got, want)
+    if path == "mosaic":
+        z = torch.zeros((2, 4, 8, 5), device=cuda)
+        sel = torch.tensor([3, 1], device=cuda)
+        q = aug.MosaicDraw(*(v[sel] for v in p))
+        warps, cut = aug._mosaic_geometry(q, metas[idx][sel], z, z[..., 0] > 0, cfg)[:2]
+        out = torch.full_like(got, -1.0)
+        warp_tiles(pool, idx, warps, q.flip, q.hsv, (cfg.hue, cfg.sat, cfg.val), sel, out, cut)
+        assert torch.equal(out[sel], got[sel]) and (out[[0, 2]] == -1).all()
+
+
+def test_warp_kernel_has_no_cap_on_its_window(cuda):
+    """A warp of scale 0.02 (a window of about 100 taps an axis) against the
+    plain path: nothing caps the taps."""
+    rs = np.random.RandomState(5)
+    cfg = aug.AugConfig(size=128)
+    tiles, metas = _letterboxed(4, 1, 128, seed=6)
+    p = _single_draw(rs)._replace(scale=torch.tensor([0.02, 0.05, 0.1, 0.02]))
+    p = type(p)(*(v.to(cuda) for v in p))
+    tiles, metas = tiles.to(cuda), metas.to(cuda)
+    got = _kernel_path(p, tiles, metas, cfg)
+    want = _plain_path(p, tiles.float(), metas, cfg)
+    r, g, b = _plain_path(p._replace(hsv=torch.zeros_like(p.hsv)), tiles.float(), metas,
+                          cfg).unbind(-1)
+    tie = ((g - b).abs() <= 1e-3) & (r >= torch.maximum(g, b) - 1e-3)
+    assert (got - want).abs().amax(-1)[~tie].max().item() <= 2e-3
+
+
+@pytest.mark.parametrize("T", [1, 4])
+def test_augment_launches_the_warp_kernel_once_a_path(cuda, T):
+    """``augment_batch`` on the card: one launch for the single path, one
+    for the mosaic where a sample is flagged, none in eval mode."""
+    cfg = aug.AugConfig(size=64)
+    inputs = [a.to(cuda) for a in _aug_inputs(4, T)]
+    for mosaic, want in ((np.array([True, False, True, True]), 1 + (T == 4)),
+                         (np.zeros(4, bool), 1)):
+        draw = aug.draw_batch(torch.Generator().manual_seed(1), cfg, 4, T, 8, mosaic,
+                              np.ones(4, bool)).to(cuda)
+        n0 = warp_tiles.launches
+        aug.augment_batch(draw, *inputs, cfg=cfg, max_gt=24)
+        assert warp_tiles.launches - n0 == want
+    n0 = warp_tiles.launches
+    aug.augment_batch(None, *inputs, cfg=cfg, max_gt=24, train=False)
+    assert warp_tiles.launches == n0
 
 
 def test_trainer_run_and_resume_on_the_card(cuda, tmp_path):
@@ -1890,7 +2067,11 @@ def test_captured_augmentation_is_bit_equal_for_every_mosaic_count(cuda, tmp_pat
     graphs = list(tr._aug_graphs.values())
     assert len({id(g._pool) for g in graphs}) == 1 and graphs[0]._pool is not None
     assert len(graphs) == len(counts) + 1            # one a mosaic count, one eval
-    assert all(g.launches == {} for g in graphs)     # no kernel of the port in the augmentation
+    # the banded kernel once a path: the single path, and the mosaic where
+    # n > 0; none in eval mode
+    assert all(set(g.launches) <= {"warp_tiles"} for g in graphs)
+    launches = sorted(g.launches.get("warp_tiles", 0) for g in graphs)
+    assert launches == [0, 1] + [2] * (len(counts) - 1), launches
 
 
 def test_captured_augmentation_replays_without_a_host_sync(cuda, tmp_path):

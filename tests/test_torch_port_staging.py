@@ -121,3 +121,55 @@ def test_stage_letterbox_checks_its_cuda_inputs():
         staging._check(src, geo, 8, torch.empty((2, 8, 8, 3), dtype=torch.uint8, device="meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         staging.decode([b""], "meta")
+
+
+def _warp_args(**changes):
+    """``kernels/augment.py::_check``'s arguments for a mosaic of 4 samples
+    at 8 px from a pool of 16 canvases, on meta tensors (no card), with
+    ``changes``."""
+    def m(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    args = dict(pool=m((16, 8, 8, 3), torch.uint8), tile_idx=m((4, 4), torch.int64),
+                warps=m((4, 4, 4)), flip=m((4, 4), torch.bool), hsv=m((4, 3)),
+                rows=m((4,), torch.int64), out=m((4, 8, 8, 3)), cut=m((4, 2)))
+    args.update({k: (m(*v) if isinstance(v, tuple) else v) for k, v in changes.items()})
+    return args
+
+
+@pytest.mark.parametrize("changes,match", [
+    ({}, "CUDA"),
+    (dict(pool=((16, 8, 8, 3),)), "u8"),
+    (dict(pool=((4, 4, 8, 8, 3), torch.uint8)), r"\(P, H, W, 3\)"),
+    (dict(tile_idx=((4, 4), torch.int32)), "int64"),
+    (dict(tile_idx=((4, 4, 1), torch.int64)), "int64"),
+    (dict(warps=((4, 2, 4),)), "warps"),
+    (dict(warps=((4, 4, 4), torch.float16)), "warps"),
+    (dict(tile_idx=((4, 1), torch.int64)), "as many tiles"),
+    (dict(flip=((4, 4), torch.uint8)), "flip"),
+    (dict(hsv=((4, 2),)), "hsv"),
+    (dict(rows=((4,), torch.int32)), "rows"),
+    (dict(rows=((3,), torch.int64)), "rows"),
+    (dict(out=((4, 9, 8, 3),)), "out"),
+    (dict(out=((4, 8, 8, 3), torch.float16)), "out"),
+    (dict(out=((2, 8, 8, 3),)), "out"),
+    (dict(cut=None), "cut lines"),
+    (dict(warps=((4, 1, 4),), flip=((4, 1), torch.bool)), "cut lines"),
+    (dict(cut=((4, 2), torch.float64)), "cut"),
+    (dict(warps=((65536, 4, 4),), flip=((65536, 4), torch.bool), hsv=((65536, 3),),
+          rows=((65536,), torch.int64), cut=((65536, 2),)), "at most"),
+])
+def test_warp_tiles_checks_its_cuda_inputs(changes, match):
+    """The augmentation kernel's wrapper refuses malformed arguments (dtype,
+    shape, the sizes its indices cover) before it looks for a card."""
+    from yolo_continuous_tpu_torch.kernels import augment as warp
+    with pytest.raises(ValueError, match=match):
+        warp._check(**_warp_args(**changes))
+
+
+def test_warp_tiles_checks_layout_and_device():
+    from yolo_continuous_tpu_torch.kernels import augment as warp
+    args = _warp_args()
+    with pytest.raises(ValueError, match="contiguous"):
+        warp._check(**dict(args, hsv=torch.empty((3, 4), device="meta").t()))
+    with pytest.raises(ValueError, match="CUDA"):
+        warp._check(**dict(args, pool=torch.empty((16, 8, 8, 3), dtype=torch.uint8)))

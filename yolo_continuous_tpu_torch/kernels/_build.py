@@ -31,9 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # flags of one source, after it on the command line: K3, K4 and K5 encode TMA
 # tensor maps with cuTensorMapEncodeTiled, which libcuda provides; the stager
 # keeps every fp32 product and sum rounded on its own (no FMA contraction), as
-# the host library it replaces computes
+# the host library it replaces computes, and the augmentation's warps as
+# torch's separate operations round them
 SOURCE_FLAGS: Dict[str, tuple] = {name: ("-lcuda",) for name in ("decode", "bin_decode", "fused_conv")}
-SOURCE_FLAGS["staging"] = ("-fmad=false",)
+SOURCE_FLAGS["staging"] = SOURCE_FLAGS["augment"] = ("-fmad=false",)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points of each source: name -> argtypes (all return a cudaError_t as int)
@@ -64,6 +65,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "staging": {
         "stage_letterbox": (_P, _P, _P, _I, _I, _P),
+    },
+    "augment": {
+        "warp_tiles": (_P, _L, _P, _I, _P, _P, _P, _P, _P, _F, _F, _F, _P, _I, _I, _I, _I, _I,
+                       _I, _P),
     },
     "marks": {
         "mark": (_I, _P),

@@ -8,9 +8,15 @@ in 0..1, labels ``[cls, cx, cy, w, h]`` and their mask out.
 
 - every geometric transform is one warp of a staging canvas, the
   ``jax.image.scale_and_translate(img - 128, ..., "linear", antialias=True)
-  + 128`` of JAX, written as two separable weight matrices a warp (rows and
-  columns, built on the device by ``weight_matrix``) applied by batched
-  ``torch.matmul`` (TF32 stays off, as the ``Trainer`` sets it);
+  + 128`` of JAX. On CUDA the banded kernel ``kernels/augment.py::
+  warp_tiles`` (``csrc/augment.cu``) computes a path's warps in one launch:
+  each output pixel from the window of u8 source pixels its triangle filter
+  covers, with the LR flip, the mosaic's quadrant select and the HSV gains
+  in the same pass, reading the pool through the tile indices. On the CPU,
+  and as the kernel's oracle, the plain form: two separable weight matrices
+  a warp (rows and columns, built by ``weight_matrix``) applied by batched
+  ``torch.matmul`` (``warp_canvas``; TF32 stays off, as the ``Trainer`` sets
+  it), then the flip or quadrant select and ``random_hsv``;
 - HSV gains in cv2's HSV ranges (H in [0,180), S/V in [0,255]);
 - mosaic = 4 warps + quadrant select + the reference's ``merge_bboxes``
   cut-line rules over a padded box tensor; only the samples whose mosaic
@@ -38,6 +44,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.augment import warp_tiles
 from ..utils import trace
 from .enhance import (EnhanceDraw, PerspectiveCfg, draw_enhance, draw_perspective,
                       random_equalize, random_flip, random_perspective)
@@ -420,14 +427,13 @@ def _jitter_geometry(ar, scale, meta, cfg: AugConfig):
     return torch.where(lt1, nw_if, nw_else), torch.where(lt1, nh_if, nh_else)
 
 
-def _place_tile(img, meta, nw, nh, dx, dy, cfg: AugConfig):
-    """Warp staging canvases so each original occupies (nw, nh) at (dx, dy)."""
+def _tile_warp(meta, nw, nh, dx, dy) -> torch.Tensor:
+    """(N, 4) [ky, kx, ty, tx] of the warps of staging canvases that place
+    each original at (nw, nh) x (dx, dy) (``warp_canvas``'s arguments)."""
     iw, ih, r0, ox, oy = meta.unbind(-1)
     kx = nw / (iw * r0)
     ky = nh / (ih * r0)
-    tx = dx - ox * kx
-    ty = dy - oy * ky
-    return warp_canvas(img, ky, kx, ty, tx, cfg.size)
+    return torch.stack([ky, kx, dy - oy * ky, dx - ox * kx], -1)
 
 
 def _transform_boxes(boxes, mask, iw, ih, nw, nh, dx, dy, flip, size):
@@ -452,23 +458,31 @@ def _flip_where(flag: torch.Tensor, img: torch.Tensor, dim: int) -> torch.Tensor
     return torch.where(flag[:, None, None, None], img.flip(dim), img)
 
 
-def augment_single(p: SingleDraw, img, meta, boxes, bmask, cfg: AugConfig):
-    """Train-mode single-image augmentation; yolo_dataset_git.py:149-214.
-
-    img: (B,S,S,3) staging canvases float 0..255; meta: (B,5)
-    [iw,ih,r0,ox,oy]; boxes: (B,MB,5) original-px xyxy+cls.
-    Returns (out_img, out_boxes, out_mask) in output px."""
+def _single_geometry(p: SingleDraw, meta, boxes, bmask, cfg: AugConfig):
+    """The single path's warps (B, 4) (``_tile_warp``) and its boxes and
+    mask in output px; yolo_dataset_git.py:152-165, 202-212."""
     iw, ih = meta[:, 0], meta[:, 1]
     s = float(cfg.size)
     nw, nh = _jitter_geometry(p.ar, p.scale, meta, cfg)
     dx = p.dxy[:, 0] * (s - nw)   # rand(0, w-nw); negative ok (:165)
     dy = p.dxy[:, 1] * (s - nh)
-    out = _place_tile(img, meta, nw, nh, dx, dy, cfg)
-    out = _flip_where(p.flip, out, 2)
-    out = random_hsv(p.hsv, out, cfg.hue, cfg.sat, cfg.val)
     # flip-after-paste == flip-before with mirrored placement:
     fdx = torch.where(p.flip, s - dx - nw, dx)
     nb, nm = _transform_boxes(boxes, bmask, iw, ih, nw, nh, fdx, dy, p.flip, s)
+    return _tile_warp(meta, nw, nh, dx, dy), nb, nm
+
+
+def augment_single(p: SingleDraw, img, meta, boxes, bmask, cfg: AugConfig):
+    """Train-mode single-image augmentation; yolo_dataset_git.py:149-214,
+    the plain form (the CPU's, and the kernel's oracle).
+
+    img: (B,S,S,3) staging canvases float 0..255; meta: (B,5)
+    [iw,ih,r0,ox,oy]; boxes: (B,MB,5) original-px xyxy+cls.
+    Returns (out_img, out_boxes, out_mask) in output px."""
+    warp, nb, nm = _single_geometry(p, meta, boxes, bmask, cfg)
+    out = warp_canvas(img, *warp.unbind(-1), cfg.size)
+    out = _flip_where(p.flip, out, 2)
+    out = random_hsv(p.hsv, out, cfg.hue, cfg.sat, cfg.val)
     return out, nb, nm
 
 
@@ -498,34 +512,44 @@ def _merge_mosaic_boxes(q, boxes, mask, cutx, cuty):
     return torch.stack([x1, y1, x2, y2, boxes[..., 4]], dim=-1), mask & ~drop
 
 
-def augment_mosaic(p: MosaicDraw, tiles, metas, boxes, bmasks, cfg: AugConfig):
-    """4-image mosaic; yolo_dataset_git.py:262-391.
-
-    tiles: (N,4,S,S,3) float 0..255; metas: (N,4,5); boxes: (N,4,MB,5);
-    bmasks: (N,4,MB). Returns (img, boxes (N,4*MB,5), mask (N,4*MB))."""
-    N, S = tiles.shape[0], cfg.size
-    s = float(S)
+def _mosaic_geometry(p: MosaicDraw, metas, boxes, bmasks, cfg: AugConfig):
+    """The mosaic's warps (N, 4, 4) (``_tile_warp``, quadrant q's in column
+    q), its cut lines (N, 2) [cutx, cuty] and its boxes (N, 4*MB, 5) and
+    mask; yolo_dataset_git.py:262-354."""
+    s = float(cfg.size)
     cutx = torch.floor(s * p.offset[:, 0])
     cuty = torch.floor(s * p.offset[:, 1])
-    geo, bxs, bms = [], [], []
+    warps, bxs, bms = [], [], []
     for q in range(4):
         meta = metas[:, q]
         nw, nh = _jitter_geometry(p.ar[:, q], p.scale[:, q], meta, cfg)
         # quadrant placement (:314-325)
         dx = cutx - nw if q in (0, 1) else cutx
         dy = cuty - nh if q in (0, 3) else cuty
-        geo.append((nw, nh, dx, dy))
+        warps.append(_tile_warp(meta, nw, nh, dx, dy))
         nb, nm = _transform_boxes(boxes[:, q], bmasks[:, q], meta[:, 0], meta[:, 1], nw, nh,
                                   dx, dy, p.flip[:, q], s)
         nb, nm = _merge_mosaic_boxes(q, nb, nm, cutx, cuty)
         bxs.append(nb)
         bms.append(nm)
+    return (torch.stack(warps, 1), torch.stack([cutx, cuty], -1), torch.cat(bxs, 1),
+            torch.cat(bms, 1))
+
+
+def augment_mosaic(p: MosaicDraw, tiles, metas, boxes, bmasks, cfg: AugConfig):
+    """4-image mosaic; yolo_dataset_git.py:262-391, the plain form (the
+    CPU's, and the kernel's oracle).
+
+    tiles: (N,4,S,S,3) float 0..255; metas: (N,4,5); boxes: (N,4,MB,5);
+    bmasks: (N,4,MB). Returns (img, boxes (N,4*MB,5), mask (N,4*MB))."""
+    N, S = tiles.shape[0], cfg.size
+    warps, cut, bx, bm = _mosaic_geometry(p, metas, boxes, bmasks, cfg)
+    cutx, cuty = cut.unbind(-1)
     # the flip happens on the original before the resize (:293-296): mirror
     # the staging canvas; then all 4N warps in one batch (quadrant-major)
     flip = p.flip.transpose(0, 1).reshape(-1)
     canvases = _flip_where(flip, tiles.transpose(0, 1).reshape(4 * N, S, S, 3), 2)
-    nw, nh, dx, dy = (torch.cat(v) for v in zip(*geo))
-    imgs = _place_tile(canvases, metas.transpose(0, 1).reshape(4 * N, 5), nw, nh, dx, dy, cfg)
+    imgs = warp_canvas(canvases, *warps.transpose(0, 1).reshape(4 * N, 4).unbind(-1), S)
     imgs = imgs.reshape(4, N, S, S, 3)
 
     pos = torch.arange(S, dtype=torch.float32, device=tiles.device)
@@ -534,7 +558,7 @@ def augment_mosaic(p: MosaicDraw, tiles, metas, boxes, bmasks, cfg: AugConfig):
     img = torch.where(top & left, imgs[0], torch.where(
         ~top & left, imgs[1], torch.where(~top & ~left, imgs[2], imgs[3])))  # (:355-362)
     img = random_hsv(p.hsv, img, cfg.hue, cfg.sat, cfg.val)  # (:369-384)
-    return img, torch.cat(bxs, 1), torch.cat(bms, 1)
+    return img, bx, bm
 
 
 def copy_paste_batch(paste, imgs, boxes, bmasks):
@@ -617,13 +641,17 @@ def augment_batch(
     train-mode call marks its phases (``utils/trace``)."""
     if train:
         trace.mark("aug_input", tiles.device)
-    return _augment(draw, tiles, metas, boxes, bmasks, cfg, max_gt, train)
+    return _augment(draw, tiles, None, metas, boxes, bmasks, cfg, max_gt, train)
 
 
-def _augment(draw, tiles, metas, boxes, bmasks, cfg, max_gt, train):
-    """``augment_batch`` after its ``aug_input`` mark."""
-    T = tiles.shape[1]
-    tiles_f = tiles.float()
+def _augment(draw, tiles, tile_idx, metas, boxes, bmasks, cfg, max_gt, train):
+    """``augment_batch`` after its ``aug_input`` mark. ``tiles``: (B, T, S,
+    S, 3) u8, or (CUDA, train mode) the pool (N, S, S, 3) that ``tile_idx``
+    (B, T) int64 indexes. CUDA tensors take the banded kernel
+    (``kernels/augment.py::warp_tiles``, one launch a path; assembled tiles
+    pass the identity index), CPU tensors the plain ``augment_single`` and
+    ``augment_mosaic``."""
+    T = (tiles if tile_idx is None else tile_idx).shape[1]
     if not train:
         # the box map as one fused multiply-add (addcmul) and the scale to
         # 0..1 as a product with 1/255: the operations XLA emits for JAX's
@@ -634,23 +662,43 @@ def _augment(draw, tiles, metas, boxes, bmasks, cfg, max_gt, train):
         x2, y2 = torch.addcmul(ox, bx[..., 2], r0), torch.addcmul(oy, bx[..., 3], r0)
         ok = bm & (x2 - x1 > 1.0) & (y2 - y1 > 1.0)
         bx, bm = _cap_boxes(torch.stack([x1, y1, x2, y2, bx[..., 4]], -1), ok, max_gt)
-        return tiles_f[:, 0] * _INV_255, boxes_to_labels(bx, bm, cfg.size), bm
+        return tiles[:, 0].float() * _INV_255, boxes_to_labels(bx, bm, cfg.size), bm
 
     dev = tiles.device
+    banded = dev.type == "cuda"
+    gains = (cfg.hue, cfg.sat, cfg.val)
+    B, S = metas.shape[0], cfg.size
+    if banded and tile_idx is None:   # assembled tiles: a pool of B * T under the identity
+        tiles, tile_idx = tiles.flatten(0, 1), torch.arange(B * T, device=dev).view(B, T)
     trace.mark("aug_single", dev)
-    s_img, s_bx, s_bm = augment_single(draw.single, tiles_f[:, 0], metas[:, 0], boxes[:, 0],
-                                       bmasks[:, 0], cfg)
-    # the mixup partner also sees the enhance ops (its own draws)
+    if banded:
+        p = draw.single
+        warp, s_bx, s_bm = _single_geometry(p, metas[:, 0], boxes[:, 0], bmasks[:, 0], cfg)
+        s_img = warp_tiles(tiles, tile_idx, warp[:, None], p.flip[:, None], p.hsv, gains,
+                           torch.arange(B, device=dev),
+                           torch.empty((B, S, S, 3), dtype=torch.float32, device=dev))
+    else:
+        s_img, s_bx, s_bm = augment_single(draw.single, tiles[:, 0].float(), metas[:, 0],
+                                           boxes[:, 0], bmasks[:, 0], cfg)
+    # the mixup partner also sees the enhance ops (its own draws); it is
+    # rolled here, before the kernel writes the mosaic rows into s_img
     p_img, p_bx, p_bm = _post_enhance(draw.partner, s_img, s_bx, s_bm, cfg)
+    r_img = torch.roll(p_img, 1, 0)
     img, bx, bm = s_img, s_bx, s_bm
     trace.mark("aug_mosaic", dev)
     if T == 4:
         bx, bm = _pad_boxes(s_bx, s_bm, 4 * s_bx.shape[1])
         sel = draw.mosaic_idx
         if len(sel):   # the mosaic branch only where its flag selects it
-            m_img, m_bx, m_bm = augment_mosaic(draw.mosaic, tiles_f[sel], metas[sel],
-                                               boxes[sel], bmasks[sel], cfg)
-            img = img.index_copy(0, sel, m_img)
+            if banded:
+                p = draw.mosaic
+                warps, cut, m_bx, m_bm = _mosaic_geometry(p, metas[sel], boxes[sel], bmasks[sel],
+                                                          cfg)
+                warp_tiles(tiles, tile_idx, warps, p.flip, p.hsv, gains, sel, img, cut)
+            else:
+                m_img, m_bx, m_bm = augment_mosaic(draw.mosaic, tiles[sel].float(), metas[sel],
+                                                   boxes[sel], bmasks[sel], cfg)
+                img = img.index_copy(0, sel, m_img)
             bx = bx.index_copy(0, sel, m_bx)
             bm = bm.index_copy(0, sel, m_bm)
     trace.mark("aug_enhance", dev)
@@ -660,7 +708,6 @@ def _augment(draw, tiles, metas, boxes, bmasks, cfg, max_gt, train):
     # single-path augment as the "one extra random image" (:59-62)
     trace.mark("aug_mix", dev)
     mix = draw.mixup
-    r_img = torch.roll(p_img, 1, 0)
     r_bx, r_bm = _pad_boxes(torch.roll(p_bx, 1, 0), torch.roll(p_bm, 1, 0), bx.shape[1])
     img = torch.where(mix[:, None, None, None], img * 0.5 + r_img * 0.5, img)
     bx = torch.cat([bx, r_bx], 1)
@@ -688,11 +735,14 @@ def augment_batch_from_pool(
 ):
     """``augment_batch`` fed from a device-resident staged-image pool
     (``YoloDataset.staged_pool``): a step ships only (B, T) tile indices
-    beside the draws, not B*T*S*S*3 pixel bytes. Gather, then the same
-    math as ``augment_batch`` on host-assembled tiles; the gather is part
-    of the ``aug_input`` phase."""
+    beside the draws, not B*T*S*S*3 pixel bytes. The same math as
+    ``augment_batch`` on host-assembled tiles: in train mode on CUDA the
+    kernel reads the pool through the indices; otherwise the tiles are
+    gathered first, in the ``aug_input`` phase."""
     if train:
         trace.mark("aug_input", pool_tiles.device)
     idx = tile_idx.long()
-    return _augment(draw, pool_tiles[idx], pool_metas[idx], pool_boxes[idx], pool_masks[idx],
-                    cfg, max_gt, train)
+    small = pool_metas[idx], pool_boxes[idx], pool_masks[idx]
+    if train and pool_tiles.is_cuda:
+        return _augment(draw, pool_tiles, idx, *small, cfg, max_gt, train)
+    return _augment(draw, pool_tiles[idx], None, *small, cfg, max_gt, train)

@@ -447,8 +447,8 @@ class Trainer:
         """A host batch of ``YoloDataset.batch`` -> (images, labels, lmask) on
         the device, eager; ``draw`` is None in eval mode. With ``pool`` (the
         device pool, ``YoloDataset.staged_pool`` on the device), ``batch`` is
-        an index batch of ``epoch_plans`` and the tiles are gathered from
-        the pool (``augment_batch_from_pool``)."""
+        an index batch of ``epoch_plans`` and the tiles are read from the
+        pool through its indices (``augment_batch_from_pool``)."""
         rec = draw.to(self.device) if draw is not None else None
         kw = dict(cfg=self.aug_cfg, max_gt=self.plan.max_boxes, train=train)
         if pool is not None:

@@ -19,12 +19,16 @@ The sequences, each emitted once a call, in this order:
   ``step_sync`` (under a mesh only: the gradients' sum and the global loss
   parts), ``step_optimizer``, ``step_ema``, ``step_end``. ``eval_loss``
   emits none.
-- ``aug``: ``aug_input`` (the pool's gather, uint8 -> fp32), ``aug_single``
-  (``augment_single`` and the mixup partner's enhance ops), ``aug_mosaic``
-  (the box padding, ``augment_mosaic`` and the ``index_copy``s; empty when
-  T = 1 or no sample is flagged), ``aug_enhance`` (the batch's enhance
-  ops), ``aug_mix`` (mixup, copy-paste, the box cap, the labels and the
-  1/255 scale), ``aug_end``. Eval mode emits none.
+- ``aug``: ``aug_input`` (the pool's gather of metas and boxes; on the CPU
+  also of the tiles; on CUDA, for assembled tiles, their identity index),
+  ``aug_single`` (the single path: on CUDA its geometry and boxes and one
+  launch of ``kernels/augment.py::warp_tiles``; then the mixup partner's
+  enhance ops and its roll), ``aug_mosaic`` (the box
+  padding, the mosaic: on CUDA its geometry and boxes and one launch that
+  writes its rows into the batch's images; the boxes' ``index_copy``s;
+  empty when T = 1 or no sample is flagged), ``aug_enhance`` (the batch's
+  enhance ops), ``aug_mix`` (mixup, copy-paste, the box cap, the labels and
+  the 1/255 scale), ``aug_end``. Eval mode emits none.
 
 Reading them: in the Chrome trace that ``utils/timing.profile_trace``
 writes, each mark is an event of category ``kernel`` named
