@@ -24,7 +24,8 @@ from yolo_continuous_tpu_torch.nn import layers
 from yolo_continuous_tpu_torch.nn.builder import YoloModel, build_model, build_model_spec
 from yolo_continuous_tpu_torch.ops import boxes
 
-NETS = ["yolov7.yaml", "yolov7-tiny.yaml", "yolov7-aux.yaml", "yolov7-p6-lite.yaml"]
+NETS = ["yolov7.yaml", "yolov7-tiny.yaml", "yolov7-aux.yaml", "yolov7-p6-lite.yaml",
+        "yolov7-w6.yaml"]
 PLANS = ["chip_tiny.yaml", "coco_train.yaml", "raccoon.yaml", "raccoon_tiny.yaml",
          "voc_train.yaml"]
 P6_ANCHORS = [[19, 27, 44, 40, 38, 94], [96, 68, 86, 152, 180, 137],
@@ -38,7 +39,7 @@ def test_lists_cover_every_cfg():
 
 def _spec_args(net):
     cfg = yaml.safe_load(open(f"cfg/net/{net}"))
-    if "p6" in net:
+    if "p6" in net or "w6" in net:
         return cfg, 3, P6_ANCHORS, 2, [[9, 10, 11], [6, 7, 8], [3, 4, 5], [0, 1, 2]]
     return cfg, 3, ANCHORS, 80, None
 

@@ -18,6 +18,7 @@
 
 MARK(step_forward)
 MARK(step_loss)
+MARK(step_aux)
 MARK(step_backward)
 MARK(step_sync)
 MARK(step_optimizer)
@@ -35,11 +36,11 @@ namespace {
 using Mark = void (*)();
 
 const Mark kMarks[] = {
-    mark_step_forward_kernel, mark_step_loss_kernel,    mark_step_backward_kernel,
-    mark_step_sync_kernel,    mark_step_optimizer_kernel, mark_step_ema_kernel,
-    mark_step_end_kernel,     mark_aug_input_kernel,    mark_aug_single_kernel,
-    mark_aug_mosaic_kernel,   mark_aug_enhance_kernel,  mark_aug_mix_kernel,
-    mark_aug_end_kernel,
+    mark_step_forward_kernel,   mark_step_loss_kernel,  mark_step_aux_kernel,
+    mark_step_backward_kernel,  mark_step_sync_kernel,  mark_step_optimizer_kernel,
+    mark_step_ema_kernel,       mark_step_end_kernel,   mark_aug_input_kernel,
+    mark_aug_single_kernel,     mark_aug_mosaic_kernel, mark_aug_enhance_kernel,
+    mark_aug_mix_kernel,        mark_aug_end_kernel,
 };
 
 constexpr int kCount = sizeof(kMarks) / sizeof(kMarks[0]);

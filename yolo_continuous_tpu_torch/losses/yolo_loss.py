@@ -25,7 +25,7 @@ on the lead predictions, at ``aux_weight``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -199,13 +199,17 @@ def _masked_mean(x, mask, count):
 
 
 def yolo_loss(preds: Sequence[torch.Tensor], targets: torch.Tensor, tmask: torch.Tensor,
-              cfg: LossConfig, aux_preds: Sequence[torch.Tensor] = ()):
+              cfg: LossConfig, aux_preds: Sequence[torch.Tensor] = (),
+              on_aux: Optional[Callable[[], None]] = None):
     """Total training loss. Returns (scalar, dict of parts).
 
     preds: per level (bs, h, w, na, no) raw logits (the heads' views);
     targets: (bs, max_gt, 5) [cls, cx, cy, w, h] normalized; tmask: (bs,
-    max_gt) bool; aux_preds: IAuxDetect's coarse maps on the same grids.
-    Parts: ``box``, ``obj``, ``cls`` (0-d tensors) and ``num_fg``.
+    max_gt) bool; aux_preds: IAuxDetect's coarse maps on the same grids;
+    on_aux: called once where the auxiliary pass starts (the train step's
+    ``step_aux`` mark), never without ``aux_preds``.
+    Parts: ``box``, ``obj``, ``cls`` (0-d tensors) and ``num_fg``; with
+    ``aux_preds`` also ``num_fg_aux``, the widened assignment's positives.
     """
     nl = len(cfg.strides)
     dev = preds[0].device
@@ -309,11 +313,15 @@ def yolo_loss(preds: Sequence[torch.Tensor], targets: torch.Tensor, tmask: torch
 
     box_l, obj_l, cls_l = level_losses(preds, cand, fg_lvl, mg_lvl)
 
+    aux_parts = {}
     if aux_preds:
         # YOLOv7's coarse-to-fine assignment: widened cells, a second SimOTA
         # match on the LEAD predictions, targets applied to the aux maps
+        if on_aux is not None:
+            on_aux()
         cost_cand = build_cands(preds, 1.0)
-        afg_lvl, amg_lvl, _, _ = match_cands(cost_cand)
+        afg_lvl, amg_lvl, afg, amask_all = match_cands(cost_cand)
+        aux_parts["num_fg_aux"] = (afg & amask_all).sum()
         aux_cand = [dict(cc, p=ac["p"]) for cc, ac in
                     zip(cost_cand, build_cands(aux_preds, 1.0))]
         abox, aobj, acls = level_losses(aux_preds, aux_cand, afg_lvl, amg_lvl)
@@ -326,4 +334,4 @@ def yolo_loss(preds: Sequence[torch.Tensor], targets: torch.Tensor, tmask: torch
     cls_l = cls_l * cfg.cls_ratio
     loss = box_l + obj_l + cls_l        # :122
     return loss, {"box": box_l, "obj": obj_l, "cls": cls_l,
-                  "num_fg": (fg & mask_all).sum()}
+                  "num_fg": (fg & mask_all).sum(), **aux_parts}

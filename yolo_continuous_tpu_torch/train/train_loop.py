@@ -225,11 +225,11 @@ class Trainer:
             return outs[: self.nl], outs[self.nl:]
         return outs, ()
 
-    def loss_from_outputs(self, outs, labels, lmask):
+    def loss_from_outputs(self, outs, labels, lmask, on_aux=None):
         lead, aux = self._split_heads(outs)
         if self.spec.head_name == "IBin":
             return bin_yolo_loss(lead, labels, lmask, self.loss_cfg)
-        return yolo_loss(lead, labels, lmask, self.loss_cfg, aux_preds=aux)
+        return yolo_loss(lead, labels, lmask, self.loss_cfg, aux_preds=aux, on_aux=on_aux)
 
     def _inputs(self, images, labels, lmask):
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
@@ -261,7 +261,8 @@ class Trainer:
         with use_mesh(self.mesh):     # the backward too: a recomputed forward reduces
             outs = model(x)
             trace.mark("step_loss", dev)
-            loss, parts = self.loss_from_outputs(outs, labels, lmask)
+            loss, parts = self.loss_from_outputs(outs, labels, lmask,
+                                                 on_aux=lambda: trace.mark("step_aux", dev))
             opt.zero_grad(set_to_none=True)
             trace.mark("step_backward", dev)
             loss.backward()
@@ -279,7 +280,8 @@ class Trainer:
     def train_step(self, state, images, labels, lmask, lr_w: float, lr_b: float, mom: float):
         """One step of ``Trainer.train_step_fn``, eager: images (bs, H, W, 3)
         float 0..1, labels (bs, max_gt, 5), lmask (bs, max_gt). Returns (state,
-        {"loss", "box", "obj", "cls", "num_fg"}, and "bin" for IBin heads),
+        {"loss", "box", "obj", "cls", "num_fg"}, "num_fg_aux" for IAuxDetect
+        heads and "bin" for IBin heads),
         values as 0-d tensors."""
         metrics = self._update(state, images, labels, lmask, self._hyper(state, lr_w, lr_b, mom))
         state["step"] += 1

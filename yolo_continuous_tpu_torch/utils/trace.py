@@ -14,7 +14,10 @@ The sequences, each emitted once a call, in this order:
 
 - ``step``: ``step_forward`` (the NHWC -> NCHW layout change and the
   forward in train mode, BatchNorm statistics included), ``step_loss``
-  (the loss from the head's outputs), ``step_backward`` (the loss's
+  (the loss from the head's outputs; of an IAuxDetect net, the lead
+  heads' assignment and loss), ``step_aux`` (an IAuxDetect net only: the
+  auxiliary heads' widened assignment, matched on the lead predictions,
+  and their loss), ``step_backward`` (the loss's
   backward and any recomputed forward under ``remat`` or ``bn_remat``),
   ``step_sync`` (under a mesh only: the gradients' sum and the global loss
   parts), ``step_optimizer``, ``step_ema``, ``step_end``. ``eval_loss``
@@ -54,9 +57,10 @@ import torch
 from ..kernels import _build
 
 # the order of csrc/marks.cu's kernels: a mark's id is its index here
-MARKS = ("step_forward", "step_loss", "step_backward", "step_sync", "step_optimizer", "step_ema",
-         "step_end", "aug_input", "aug_single", "aug_mosaic", "aug_enhance", "aug_mix", "aug_end")
-OPTIONAL = frozenset({"step_sync"})     # a mesh's step only
+MARKS = ("step_forward", "step_loss", "step_aux", "step_backward", "step_sync", "step_optimizer",
+         "step_ema", "step_end", "aug_input", "aug_single", "aug_mosaic", "aug_enhance", "aug_mix",
+         "aug_end")
+OPTIONAL = frozenset({"step_aux", "step_sync"})     # an IAuxDetect net's step; a mesh's step
 _IDS = {name: i for i, name in enumerate(MARKS)}
 KERNEL = re.compile(r"(^|[^A-Za-z0-9_])mark_([a-z_]+)_kernel")
 _local = threading.local()              # .marks: the list of an active recording()
@@ -103,9 +107,9 @@ def phases(marks: Sequence[Tuple[str, int]], scope: str) -> Dict[str, float]:
     """Each phase of ``scope`` ("step" or "aug") -> its mean milliseconds
     over the complete sequences of ``marks`` (``(name, start_ns)`` in time
     order): from the scope's first mark through ``<scope>_end`` with every
-    mark in order, an optional one (``step_sync``) present or not. A
-    sequence cut by either edge of the trace is left out; a phase's mean is
-    over the sequences that hold it. Empty when none is complete."""
+    mark in order, an optional one (``step_aux``, ``step_sync``) present or
+    not. A sequence cut by either edge of the trace is left out; a phase's
+    mean is over the sequences that hold it. Empty when none is complete."""
     order = [n for n in MARKS if n.startswith(scope + "_")]
     sums: Dict[str, List[float]] = {}
     run: List[Tuple[str, int]] = []
