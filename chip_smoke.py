@@ -95,7 +95,7 @@ failure exits non-zero before the result line.
    mAP), and fails unless every loss is finite, the checkpoints
    (``.train.pt``, ``.last``, ``.bestmap``) exist, every mAP is in [0, 1],
    the resume starts at step 8, and every ``validate_map`` (EMA weights
-   through the ``Detector``, max_det 300) launched K3 and K1: their
+   through the ``Detector``, max_det 300) launched K3, K1 and ``bn_act``: their
    counters are set to 0 just before each call and read just after. Every
    augmentation of the run goes through ``Trainer.jitted_augment()`` (one
    captured graph per mosaic count, source and mode, in one shared pool);
@@ -279,8 +279,14 @@ bound and error at batch 1 (``*_bs1``); a sixth entry, ``stage_letterbox``, whos
 with the ``warp_tiles`` JSON line's record, printed after phase 10 by
 ``warp_tiles_alone``: the kernel against the plain augmentation at 32
 singles and 32 mosaics of 640, each path's ms, plain ms and byte bound, and
-``launches`` from phase 10's run) and the card's name and power limit; the
-last line is ``{"ok": true, "device": {...}}``.
+``launches`` from phase 10's run; an eighth, ``bn_act``, with the ``bn_act``
+JSON line's record, printed after it by ``bn_act_alone``: the kernel against
+the plain expression, bit for bit, at the 92 eval BatchNorm calls of one
+yolov7 @640 request at batch 32, their summed ms, plain ms and byte bound,
+and ``launches`` from phase 4's main paths, where the default path must
+launch it 92 times a request and the fused-tail path 68; phase 5's train
+steps, eager and captured, must launch it not at all) and the card's name
+and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 import copy
 import json
@@ -305,6 +311,8 @@ BIN_GAP = 1e-5      # K4 precondition: top two sigmoided bins of every value thi
 # across a bf16 boundary); fp32 within fp32 summation-order error
 K5_TOL = {"bf16": dict(rtol=8e-3, atol=1e-3), "fp32": dict(rtol=1e-5, atol=1e-4)}
 BS, SIZE, CONF, IOU = 16, 640, 0.25, 0.45
+# eval BatchNorms of a yolov7 request: bn_act's launches (with fused tails 24 fewer)
+YOLOV7_EVAL_BNS = 92
 ANCHOR_ROWS = [[12, 16, 19, 36, 40, 28], [36, 75, 76, 55, 72, 146], [142, 110, 192, 243, 459, 401]]
 # one train step, card against CPU (fp32): the tolerances of
 # tests/test_torch_port_train.py, set by the summation order of train-mode
@@ -924,9 +932,10 @@ def counters():
     from yolo_continuous_tpu_torch.kernels.fused_conv import fused_pointwise_conv_cuda
     from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
     from yolo_continuous_tpu_torch.kernels.augment import warp_tiles
+    from yolo_continuous_tpu_torch.kernels.bn_act import bn_act
     from yolo_continuous_tpu_torch.kernels.staging import stage_letterbox
     return (decode_outputs_cuda, nms_suppress, nms_suppress_tiled, decode_outputs_bin_cuda,
-            fused_pointwise_conv_cuda, stage_letterbox, warp_tiles)
+            fused_pointwise_conv_cuda, stage_letterbox, warp_tiles, bn_act)
 
 
 def drive_path(label, det, images, max_dets):
@@ -1065,13 +1074,15 @@ def phase_main():
     paths = (
         ("default", dict(), (300, 300, 300, 4096),
          ("decode_outputs_cuda", "nms_suppress", "nms_suppress_tiled"),
-         {"decode_outputs_cuda": 4, "decode_outputs_bin_cuda": 0, "fused_pointwise_conv_cuda": 0}),
+         {"decode_outputs_cuda": 4, "decode_outputs_bin_cuda": 0, "fused_pointwise_conv_cuda": 0,
+          "bn_act": 4 * YOLOV7_EVAL_BNS}),
         ("ibin", dict(model_cfg=ibin_net()), (300, 300, 300),
-         ("decode_outputs_bin_cuda", "nms_suppress"),
+         ("decode_outputs_bin_cuda", "nms_suppress", "bn_act"),
          {"decode_outputs_bin_cuda": 3, "decode_outputs_cuda": 0, "fused_pointwise_conv_cuda": 0}),
         ("fused_tails", dict(fused_tails=True), (300, 300, 300),
          ("fused_pointwise_conv_cuda", "decode_outputs_cuda", "nms_suppress"),
-         {"fused_pointwise_conv_cuda": 72, "decode_outputs_cuda": 3, "decode_outputs_bin_cuda": 0}),
+         {"fused_pointwise_conv_cuda": 72, "decode_outputs_cuda": 3, "decode_outputs_bin_cuda": 0,
+          "bn_act": 3 * (YOLOV7_EVAL_BNS - 24)}),
     )
     dets, img_s = {}, {}
     for label, kw, max_dets, must, exact in paths:
@@ -1395,10 +1406,14 @@ def step_captured_vs_eager(plan, inputs) -> dict:
     against ``eval_loss`` (3 replays bit-equal)."""
     import torch
     from yolo_continuous_tpu_torch.train.train_loop import Trainer
+    from yolo_continuous_tpu_torch.kernels.bn_act import bn_act
     twins = [Trainer(plan, device="cuda") for _ in range(2)]
     states = [tr.init_state(seed=0) for tr in twins]
+    bn_before = bn_act.launches
     compiled, rec = ramp_bit_equal("captured train step", twins, states, inputs,
                                    warmup_ramp(plan, 5))
+    if bn_act.launches != bn_before:
+        fail(f"captured train step: {bn_act.launches - bn_before} launches of bn_act, not 0")
     del twins[1], states[1]
     torch.cuda.empty_cache()
     trainer, state = twins[0], states[0]
@@ -1416,6 +1431,7 @@ def phase_train():
     """The train step of yolov7 @640, batch 16, at full width on the card."""
     import torch
     from yolo_continuous_tpu_torch.config.plan import TrainPlan
+    from yolo_continuous_tpu_torch.kernels.bn_act import bn_act
     from yolo_continuous_tpu_torch.train.checkpoint import (save_checkpoint,
                                                             train_checkpoint_path, try_load)
     from yolo_continuous_tpu_torch.train.train_loop import Trainer
@@ -1436,6 +1452,7 @@ def phase_train():
     parts = [step()]                           # warm-up (cuDNN picks its algorithms)
     torch.cuda.synchronize()
     step_ms, host_ms = [], []
+    bn_before = bn_act.launches
     for _ in range(10):
         t0 = time.perf_counter()
         parts.append(step())
@@ -1443,6 +1460,8 @@ def phase_train():
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
+    if bn_act.launches != bn_before:
+        fail(f"train: {bn_act.launches - bn_before} launches of bn_act in 10 train steps, not 0")
     det_ms = deterministic_cost(step, turns=4)
     parts = [{k: float(v) for k, v in p.items()} for p in parts]
     for i, p in enumerate(parts):
@@ -1781,7 +1800,7 @@ def phase_train_run() -> dict:
             summary = validate_map(state, **kw)
             torch.cuda.synchronize()
             launches = {fn.__name__: fn.launches for fn in counters()}
-            for name in ("decode_outputs_cuda", "nms_suppress"):
+            for name in ("decode_outputs_cuda", "nms_suppress", "bn_act"):
                 if launches[name] == 0:
                     fail(f"train_run: validate_map never launched {name}: {launches}")
             for name, n in launches.items():
@@ -2817,7 +2836,8 @@ def phase_serve():
         batches = sum(after[n]["batches"] - before[n]["batches"] for n in after)
         want = {"decode_outputs_cuda": batches, "nms_suppress": batches,
                 "nms_suppress_tiled": 0, "decode_outputs_bin_cuda": 0,
-                "fused_pointwise_conv_cuda": 0, "stage_letterbox": 0, "warp_tiles": 0}
+                "fused_pointwise_conv_cuda": 0, "stage_letterbox": 0, "warp_tiles": 0,
+                "bn_act": YOLOV7_EVAL_BNS * batches}
         if launches != want:
             fail(f"serve: launches {launches} over {batches} batches, expected {want} "
                  "(K3 in its TMA form and K1 once a batch)")
@@ -3701,7 +3721,8 @@ def bench_calls(total) -> tuple:
     want = {key: {"decode_outputs_cuda": int(bs is not None), "nms_suppress": 1,
                   "fused_pointwise_conv_cuda": 24 if key == "infer_1_ms_fused_tails" else 0,
                   "nms_suppress_tiled": 0, "decode_outputs_bin_cuda": 0, "stage_letterbox": 0,
-                  "warp_tiles": 0}
+                  "warp_tiles": 0, "bn_act": 0 if bs is None else YOLOV7_EVAL_BNS - 24 * (
+                      key == "infer_1_ms_fused_tails")}
             for key, (_, _, bs) in calls.items()}
     zero = torch.zeros((), device="cuda")
     per_call = {}
@@ -3874,6 +3895,76 @@ def warp_tiles_alone() -> dict:
     return rec
 
 
+def bn_act_alone(batch: int = 32) -> dict:
+    """``kernels/bn_act.py::bn_act`` at the 92 eval BatchNorm calls of one
+    yolov7 @640 request at batch 32 (random weights, random images; each
+    call's bf16 input, statistics and activation recorded from the eager
+    forward): each call bit-equal to ``bn_act_plain`` (NaN counted equal to
+    NaN) and one launch; the 92 calls' summed device ms (CUDA events, stream
+    held) beside their byte bound (each map read and written once, and the
+    four fp32 statistics, at 3.35 TB/s) and the plain expression's ms; the
+    time of each distinct shape. The kernels line's ``bn_act`` row."""
+    import torch
+    from yolo_continuous_tpu_torch.detect_api import Detector
+    from yolo_continuous_tpu_torch.kernels.bn_act import bn_act, bn_act_plain
+    from yolo_continuous_tpu_torch.nn.layers import BatchNorm2d
+    det = Detector(random_weights_plan(), device="cuda", seed=0)
+    images = torch.from_numpy(np.random.RandomState(23).rand(batch, SIZE, SIZE, 3)
+                              .astype("float32")).cuda()
+    calls = []
+
+    def record(m, args):
+        calls.append((args[0], (m.weight.detach(), m.bias.detach(), m.running_mean,
+                                m.running_var, m.eps, args[1] if len(args) > 1 else None)))
+    hooks = [m.register_forward_pre_hook(record) for m in det.model.modules()
+             if isinstance(m, BatchNorm2d)]
+    with torch.inference_mode():
+        det.forward(images)
+    for h in hooks:
+        h.remove()
+    del det
+    if len(calls) != YOLOV7_EVAL_BNS:
+        fail(f"bn_act: a yolov7 request made {len(calls)} eval BatchNorm calls, not 92")
+    ints = {2: torch.int16, 4: torch.int32}
+    n0 = bn_act.launches
+    for i, (x, p) in enumerate(calls):
+        got, want = bn_act(x, *p), bn_act_plain(x, *p)
+        t = ints[got.element_size()]
+        same = (got.view(t) == want.view(t)) | (got.isnan() & want.isnan())
+        if not bool(same.all()):
+            fail(f"bn_act call {i} {tuple(x.shape)} {x.dtype} act {p[-1]}: "
+                 f"{int((~same).sum())} values differ from the plain expression")
+    if bn_act.launches - n0 != len(calls):
+        fail(f"bn_act: {bn_act.launches - n0} launches in {len(calls)} calls")
+    torch.cuda.synchronize()
+
+    def moved(x):
+        return 2 * x.numel() * x.element_size() + 16 * x.shape[1]
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: [bn_act(x, *p) for x, p in calls], iters=5, warmup=1)
+        plain_ms = cuda_ms(lambda: [bn_act_plain(x, *p) for x, p in calls], iters=3, warmup=1,
+                           hold=False)
+        shapes = {}
+        for x, p in calls:
+            key = "x".join(str(d) for d in x.shape)
+            if key not in shapes:
+                same = [(y, q) for y, q in calls if tuple(y.shape) == tuple(x.shape)]
+                shapes[key] = dict(calls=len(same), ms=cuda_ms(
+                    lambda: [bn_act(y, *q) for y, q in same], iters=10, warmup=2),
+                    bound_ms=sum(moved(y) for y, _ in same) / HBM_BYTES_S * 1e3)
+    bytes_moved = sum(moved(x) for x, _ in calls)
+    bound_ms = bytes_moved / HBM_BYTES_S * 1e3
+    rec = dict(shape=f"the {len(calls)} eval BatchNorms of yolov7 @{SIZE}, batch {batch}, bf16",
+               calls=len(calls), dtype=str(calls[0][0].dtype), ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by="bytes", bytes=bytes_moved,
+               roofline_share=bound_ms / ms, launches=len(calls), bit_equal=True,
+               by_shape=shapes)
+    print(json.dumps({"bn_act": rec}), flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_bench(beside=None):
     """The port's bench on the card, then its timed functions counted and
     their kernels held against their plain versions in this process."""
@@ -3960,6 +4051,7 @@ def main() -> None:
     launches_parallel = timed("parallel_and_tools", phase_parallel_and_tools())
     launches_native, stager = timed("native_staging", phase_native_staging())
     warps = timed("warp_tiles", warp_tiles_alone())
+    bn = timed("bn_act", bn_act_alone())
     launches_bench, k5_bs1 = timed("bench", phase_bench(dict(infer_img_s=main_img_s,
                                                              train_img_s=train_img_s)))
     print(json.dumps({"phase_seconds": dict(seconds, total=sum(seconds.values()))}),
@@ -4038,6 +4130,22 @@ def main() -> None:
                            for k in ("ms", "plain_ms", "bound_ms")},
                         bound_by="bytes", library_ms=None, single=warps["single"],
                         mosaic=warps["mosaic"]))
+    # eval BatchNorm's fold, apply and activation replace no TPU kernel (XLA
+    # fuses them); their main path is every request, 92 launches a yolov7 call
+    counter = "bn_act"
+    kernels.append(dict(name="bn_act", route="cuda",
+                        source="yolo_continuous_tpu_torch/csrc/bn_act.cu",
+                        replaces="none: eval BatchNorm and its activation "
+                                 "(yolo_continuous_tpu/nn/layers.py _BNCore), fused by XLA",
+                        launches=launches[counter],
+                        launches_validate_map=launches_validate_map[counter],
+                        launches_model_zoo=launches_model_zoo[counter],
+                        launches_serve=launches_serve[counter],
+                        launches_parallel=launches_parallel[counter],
+                        launches_native_staging=launches_native[counter],
+                        launches_bench=launches_bench[counter], library_ms=None,
+                        **{k: bn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "roofline_share", "shape")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -1,5 +1,5 @@
-"""Kernels K1-K5, the JPEG stager and the augmentation's warps on the card against their plain
-PyTorch versions.
+"""Kernels K1-K5, the JPEG stager, the augmentation's warps and eval BatchNorm's ``bn_act`` on
+the card against their plain PyTorch versions.
 
 These need an NVIDIA GPU with nvcc (sm_90a) and skip elsewhere. Run them on
 the GPU machine with:
@@ -24,6 +24,7 @@ from _torch_port import (ANCHORS as ANCHOR_ROWS, FUSE_NET, YOLOV7_640_FUSED_TAIL
 from yolo_continuous_tpu_torch.config.plan import TrainPlan
 from yolo_continuous_tpu_torch.detect_api import Detector
 from yolo_continuous_tpu_torch.kernels import bin_decode, decode
+from yolo_continuous_tpu_torch.kernels import bn_act as bn_act_k
 from yolo_continuous_tpu_torch.kernels.augment import warp_tiles
 from yolo_continuous_tpu_torch.kernels.bin_decode import decode_outputs_bin_cuda
 from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda
@@ -1549,7 +1550,8 @@ def test_a_failed_capture_raises_and_runs_nothing_eagerly(cuda, monkeypatch):
     monkeypatch.setattr(nms_ops, "top_candidates", syncing)
     x = torch.zeros(2, 64, 64, 3, device=cuda)
     n3 = decode_outputs_cuda.launches
-    with pytest.raises(CaptureError, match="capture failed after recording decode_outputs_cuda"):
+    with pytest.raises(CaptureError, match="capture failed after recording bn_act x92, "
+                                           "decode_outputs_cuda x1"):
         det(x, *KEY)
     torch.cuda.synchronize()
     assert det._infer == {} and decode_outputs_cuda.launches == n3
@@ -1800,8 +1802,8 @@ def test_a_host_sync_in_the_loss_fails_the_step_capture(cuda, monkeypatch):
     tr, state = _twins(cuda, _yolov7_tiny_cfg())[:2]
     real = tr.loss_from_outputs
 
-    def syncing(outs, labels, lmask):
-        loss, parts = real(outs, labels, lmask)
+    def syncing(outs, labels, lmask, **kw):
+        loss, parts = real(outs, labels, lmask, **kw)
         float(loss.item())
         return loss, parts
     monkeypatch.setattr(tr, "loss_from_outputs", syncing)
@@ -2161,3 +2163,197 @@ def test_a_failed_nms_capture_raises(cuda, monkeypatch):
     with pytest.raises(CaptureError, match="capture failed"):
         nms_ops.nms_single(p, 0.25, 0.45, 100)
     assert len(nms_ops._graphs) == 0
+
+
+# eval BatchNorm's fold, apply and activation as one launch (kernels/bn_act.py):
+# bit-equal to the plain expression for every dtype and activation
+
+BN_ACTS = [True, "relu", ("leaky_relu", 0.1), ("leaky_relu", 0.01), "hardswish", None]
+# eight channels whose folds span small, large and negative inv and shift; the
+# first and last fold to a shift of exactly 0, the last from a variance of 0
+BN_SPAN = dict(weight=[1.0, 1e-3, 37.5, -2.0, 0.3, -1e-2, 250.0, 1.0],
+               bias=[0.0, -0.1, 2.0, 1e3, -5.0, 0.0, 1e-4, 0.0],
+               mean=[0.0, 0.5, -3.0, 1.0, 100.0, -0.2, 0.01, 0.0],
+               var=[1.0, 1e-6, 4.0, 0.25, 1e4, 3.0, 1e-2, 0.0])
+
+
+def _bn_params(c, seed=None):
+    """(weight, bias, mean, var) fp32 on the card: ``BN_SPAN`` for 8
+    channels, else seeded draws at the scales of a trained net's BNs."""
+    if seed is None:
+        return [torch.tensor(BN_SPAN[k], device="cuda") for k in ("weight", "bias", "mean", "var")]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    draw = (lambda: torch.randn(c, device="cuda", generator=g))
+    return [1 + 0.5 * draw(), 0.5 * draw(), 0.5 * draw(),
+            torch.rand(c, device="cuda", generator=g) * 2 + 1e-3]
+
+
+def _same_bits(got, want, what=""):
+    """Equal bit for bit, NaN counted equal to NaN."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    same = (got.view(ints) == want.view(ints)) | (got.isnan() & want.isnan())
+    bad = (~same).nonzero()
+    assert bad.shape[0] == 0, (f"{what}: {bad.shape[0]} of {got.numel()} differ, first at "
+                               f"{bad[0].tolist()}: {got[tuple(bad[0])].item()} against "
+                               f"{want[tuple(bad[0])].item()}")
+
+
+def _launch_and_compare(x, params, eps, act, what):
+    before = bn_act_k.bn_act.launches
+    got = bn_act_k.bn_act(x, *params, eps, act)
+    torch.cuda.synchronize()
+    assert bn_act_k.bn_act.launches == before + 1
+    assert got.stride() == x.stride()
+    _same_bits(got, bn_act_k.bn_act_plain(x, *params, eps, act), what)
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-3])
+@pytest.mark.parametrize("act", BN_ACTS, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_bn_act_on_every_16_bit_pattern(cuda, dtype, act, eps):
+    """Every one of the 65,536 bit patterns (NaN, infinities and subnormals
+    too) in each of ``BN_SPAN``'s channels."""
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=cuda).to(torch.int16)
+    x = x.view(dtype).reshape(1, 1, 256, 256).expand(2, 8, 256, 256).contiguous()
+    _launch_and_compare(x, _bn_params(8), eps, act, f"{dtype} {act} eps {eps}")
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 15, 20), (3, 24, 16, 16), (2, 5, 7, 9), (1, 3, 1, 1)])
+@pytest.mark.parametrize("act", [True, ("leaky_relu", 0.1), "hardswish", "relu", None], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.bfloat16])
+def test_bn_act_matches_plain_on_seeded_draws(cuda, dtype, act, shape):
+    """Seeded maps and statistics in each dtype; a 15 x 20 plane is 600
+    bytes in 16 bits, so its planes start off the 16-byte grid and end in a
+    scalar tail."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = (torch.randn(shape, device=cuda, generator=g) * 3).to(dtype)
+    _launch_and_compare(x, _bn_params(shape[1], seed=shape[1]), 1e-5, act,
+                        f"{dtype} {act} {shape}")
+
+
+@pytest.mark.parametrize("offset", [1, 8])
+def test_bn_act_off_the_16_byte_grid(cuda, offset):
+    """x starting ``offset`` bf16 values into its storage: one value (x and
+    the output apart by other than 16 bytes, every element on its own) or
+    eight (aligned again)."""
+    n, c, h, w = 2, 16, 16, 24
+    g = torch.Generator(device=cuda).manual_seed(offset)
+    flat = torch.randn(offset + n * c * h * w, device=cuda, generator=g).to(torch.bfloat16)
+    x = flat[offset:].view(n, c, h, w)
+    _launch_and_compare(x, _bn_params(c, seed=3), 1e-5, True, f"offset {offset}")
+
+
+def test_bn_act_refuses_on_the_card(cuda):
+    x = torch.zeros(1, 4, 2, 2, device=cuda).to(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="NCHW-contiguous"):
+        bn_act_k.bn_act(x, *_bn_params(4, seed=0), 1e-5, True)
+    with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
+        bn_act_k.bn_act(x.double(), *_bn_params(4, seed=0), 1e-5, True)
+    x = torch.zeros(1, 4, 2, 2, device=cuda)
+    with pytest.raises(ValueError, match="device"):
+        bn_act_k.bn_act(x, *[t.cpu() for t in _bn_params(4, seed=0)], 1e-5, True)
+
+
+def test_bn_act_folds_as_torch_on_every_channel_of_yolov7(cuda):
+    """Every eval BatchNorm of a seeded yolov7: the kernel's own fold read
+    back through fp32 maps of zeros (the shift) and of ones with the mean
+    and bias at 0 (inv), equal to torch's ``rsqrt`` fold on every channel."""
+    from yolo_continuous_tpu_torch.nn.layers import BatchNorm2d
+    model = Detector(_yolov7_plan(64), device="cpu", seed=0).model
+    spread_weights(model, 7)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    assert len(bns) == 92
+    for i, bn in enumerate(bns):
+        w, b, mean, var = (t.detach().cuda() for t in (bn.weight, bn.bias, bn.running_mean,
+                                                         bn.running_var))
+        inv, shift = bn_act_k.fold(w, b, mean, var, bn.eps)
+        x = torch.tensor([0.0, 1.0], device=cuda).expand(1, w.shape[0], 1, 2).contiguous()
+        got = bn_act_k.bn_act(x, w, b, mean, var, bn.eps, None)
+        zero = torch.zeros_like(b)
+        unit = bn_act_k.bn_act(x, w, zero, zero, var, bn.eps, None)
+        _same_bits(got[0, :, 0, 0], shift, f"BN {i}: shift")
+        _same_bits(unit[0, :, 0, 1], inv, f"BN {i}: inv")
+
+
+def _bn_eval(c):
+    from yolo_continuous_tpu_torch.nn.layers import BatchNorm2d
+    bn = BatchNorm2d(c).cuda().eval()
+    with torch.no_grad():
+        for t, v in zip((bn.weight, bn.bias, bn.running_mean, bn.running_var),
+                        _bn_params(c, seed=c)):
+            t.copy_(v)
+    return bn
+
+
+def test_eval_batchnorm_routes_by_what_the_call_shows(cuda):
+    """On the card: no gradient, bf16, NCHW or channels-last or a strided
+    view (made NCHW-contiguous first): the kernel; in fp64: the kernel's
+    refusal; where a gradient flows (x requiring it, or the module's own
+    parameters outside ``no_grad``): the plain expression, with no launch."""
+    bn = _bn_eval(16)
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn(2, 16, 8, 8, device=cuda, generator=g).bfloat16()
+    for what, inp in (("nchw", x), ("channels_last", x.to(memory_format=torch.channels_last)),
+                      ("strided", x[:, :, ::2])):
+        before = bn_act_k.bn_act.launches
+        with torch.no_grad():
+            got = bn(inp, True)
+        assert bn_act_k.bn_act.launches == before + 1, what
+        _same_bits(got, bn_act_k.bn_act_plain(inp, bn.weight.detach(), bn.bias.detach(),
+                                              bn.running_mean, bn.running_var, bn.eps, True),
+                   what)
+    before = bn_act_k.bn_act.launches
+    with torch.no_grad(), pytest.raises(ValueError, match="bf16, fp16 or fp32"):
+        bn(x.double(), True)
+    for inp in (x.float().requires_grad_(), x):
+        y = bn(inp, True)
+        assert y.grad_fn is not None
+    assert bn_act_k.bn_act.launches == before
+
+
+def _yolov7_request(cuda, bs=32, size=640):
+    plan = _yolov7_plan(size)
+    det = Detector(plan, device="cuda", seed=0)
+    spread_weights(det.model, 2)
+    x = torch.from_numpy(np.random.RandomState(0).rand(bs, size, size, 3).astype(np.float32))
+    return det, x.to(cuda)
+
+
+def test_yolov7_request_launches_bn_act_92_times_bit_equal_to_plain(cuda, monkeypatch):
+    """yolov7 @640 at batch 32, captured: 92 launches of the kernel a call,
+    and answers bit-equal to the same request with every eval BatchNorm
+    forced onto the plain expression."""
+    from yolo_continuous_tpu_torch.nn import layers
+    det, x = _yolov7_request(cuda)
+    got = det(x, *KEY)
+    call = det._infer[(tuple(x.shape), x.dtype)]
+    assert call.launches["bn_act"] == 92
+    before = bn_act_k.bn_act.launches
+    again = det(x, *KEY)
+    torch.cuda.synchronize()
+    assert bn_act_k.bn_act.launches - before == 92
+    _bit_equal(again, got, "replay against replay")
+    monkeypatch.setattr(layers, "bn_act", bn_act_k.bn_act_plain)
+    det._drop_graphs()
+    before = bn_act_k.bn_act.launches
+    plain = det(x, *KEY)
+    torch.cuda.synchronize()
+    assert bn_act_k.bn_act.launches == before
+    _bit_equal(got, plain, "kernel against the plain expression")
+    assert bool(got[3].any())
+
+
+def test_yolov7_captured_train_step_launches_no_bn_act(cuda):
+    """Train mode takes train-mode BatchNorm: a captured yolov7 step holds no
+    launch of the kernel."""
+    tr = Trainer(TrainPlan(dict(tiny_plan_cfg("Detect", 64), model_cfg="cfg/net/yolov7.yaml")),
+                 device=cuda)
+    state = tr.init_state(seed=0)
+    step = tr.jitted_train_step()
+    before = bn_act_k.bn_act.launches
+    for s in range(3):
+        step(state, *_train_batch(s), *RAMP[s])
+    torch.cuda.synchronize()
+    (call,) = tr._graphs.values()
+    assert "bn_act" not in call.launches and bn_act_k.bn_act.launches == before

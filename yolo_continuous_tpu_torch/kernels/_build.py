@@ -73,6 +73,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "marks": {
         "mark": (_I, _P),
     },
+    "bn_act": {
+        "bn_act": (_P, _P, _P, _P, _P, _P, _F, _I, _F, _I, _L, _I, _L, _P),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.bn_act import act_code, activate, bn_act, bn_act_plain, fold
 from ..kernels.fused_conv import fused_pointwise_conv
 from ..parallel.mesh import (active_mesh, all_reduce_sum, gather_from_model,
                              sharded_conv)
@@ -170,19 +171,7 @@ def remat_context_fn(policy, bn_tail: bool):
 
 def apply_act(x: torch.Tensor, act: ActSpec) -> torch.Tensor:
     """The activation specs of JAX ``apply_act`` (``layers.py:115-128``)."""
-    if act is True or act == "silu":
-        return F.silu(x)
-    if isinstance(act, tuple) and act[0] == "leaky_relu":
-        return F.leaky_relu(x, negative_slope=act[1])
-    if act == "leaky_relu":
-        return F.leaky_relu(x, negative_slope=0.01)
-    if act == "relu":
-        return F.relu(x)
-    if act == "hardswish":
-        return F.hardswish(x)
-    if act in (False, None, "identity"):
-        return x
-    raise ValueError(f"unknown activation spec {act!r}")
+    return activate(x, *act_code(act))
 
 
 BN_MOMENTUM = 0.9   # flax's momentum: running = 0.9 * running + 0.1 * batch
@@ -208,8 +197,7 @@ def batch_stats(x: torch.Tensor):
 def _bn_train(x, weight, bias, eps: float, act):
     """Train-mode BatchNorm and activation: (output, mean, var)."""
     mean, var = batch_stats(x)
-    inv = weight * torch.rsqrt(var + eps)
-    shift = bias - mean * inv
+    inv, shift = fold(weight, bias, mean, var, eps)
     return apply_act(x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None],
                      act), mean, var
 
@@ -224,9 +212,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     Both modes fold ``inv = weight * rsqrt(var + eps)`` and ``shift = bias -
     mean * inv`` in fp32 and compute ``x * inv + shift`` in the input's dtype:
     eval with the running statistics, train with ``batch_stats`` (gradients
-    flow through them). Train mode also updates the running statistics as
-    flax does: ``0.9 * running + 0.1 * batch``, the variance unbiased by
-    ``n / (n - 1)``. ``num_batches_tracked`` is left as it is (JAX has none).
+    flow through them). Eval on a CUDA tensor is one launch of
+    ``kernels/bn_act.py``'s kernel (fold, apply and activation, bit-equal to
+    ``bn_act_plain``) on the map made NCHW-contiguous; its wrapper refuses a
+    dtype other than bf16, fp16 or fp32. Eval keeps the plain expression on a
+    CPU tensor, and on the card only where autograd has to flow (grad mode on
+    and x or the affine parameters requiring grad, as in ``model.eval();
+    model(x)`` outside ``no_grad``), since the kernel has no backward. Train
+    mode also updates the running statistics as flax does: ``0.9 * running +
+    0.1 * batch``, the variance unbiased by ``n / (n - 1)``. ``num_batches_tracked`` is left as it is (JAX has none).
     ``eps`` and ``flax_momentum`` change for the YoloBody family (1e-3, 0.97).
     """
 
@@ -237,10 +231,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor, act: ActSpec = None) -> torch.Tensor:
         """BatchNorm, then the activation ``act`` (none by default)."""
         if not self.training:
-            inv = self.weight * torch.rsqrt(self.running_var + self.eps)
-            shift = self.bias - self.running_mean * inv
-            return apply_act(x * inv.to(x.dtype)[:, None, None]
-                             + shift.to(x.dtype)[:, None, None], act)
+            args = (self.weight, self.bias, self.running_mean, self.running_var, self.eps, act)
+            grad = torch.is_grad_enabled() and (
+                x.requires_grad or self.weight.requires_grad or self.bias.requires_grad)
+            if x.device.type != "cuda" or grad:
+                return bn_act_plain(x, *args)
+            return bn_act(x.contiguous(), *args)
         if getattr(_REMAT, "bn_tail", False):
             from torch.utils.checkpoint import checkpoint
             out, mean, var = checkpoint(_bn_train, x, self.weight, self.bias, self.eps, act,
@@ -389,8 +385,7 @@ class Conv(nn.Module):
             return self.bn(self.conv(x), self.act)
         if self.fused_tail and not self.training and x.shape[1] >= FUSED_TAIL_MIN_CIN:
             bn = self.bn
-            inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
-            shift = bn.bias - bn.running_mean * inv
+            inv, shift = fold(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
             w = self.conv.weight.to(x.dtype).reshape(self.conv.out_channels, -1)
             return fused_pointwise_conv(x.contiguous(), w, inv, shift)
         # the activation inside BatchNorm: it spans the bn_remat checkpoint
