@@ -25,6 +25,12 @@ failure exits non-zero before the result line.
    SiLU in bf16 at each of the 24 shapes that yolov7 @640 gives it at
    batch 16, plus fp32 and ragged cases. K5 is also timed against cuDNN's
    bf16 ``F.conv2d`` of the same products and the port's unfused ``Conv``.
+   Then the single-image request's kernels at batch 1: K3 on the three
+   levels of a bf16 head's maps cast to fp32, in its TMA form; ``nms_single``
+   on one 25,200-row draw (K1 once, its compiled call bit-equal to the eager
+   ``nms_core``, K1 on its candidates equal to the plain keep-set); K5 at the
+   24 shapes of the fused-tail request at batch 1, timed beside its plain
+   version and its bound (the kernels line's ``*_bs1`` fields).
 3. reference: ``Detector``s on CUDA in fp32 against the same seeded
    ``Detector``s on the CPU (plain versions) at 64 px: yolov7 (raw maps,
    decoded rows, NMS keep-set of the kernel equal to the plain one on the
@@ -229,31 +235,6 @@ failure exits non-zero before the result line.
    and ``staged_pool`` of the train set each way, in 2. Prints a
    ``native_staging`` JSON line; ``--only native_staging`` runs this phase
    alone (no result line).
-11. bench: the port's bench, ``python -m yolo_continuous_tpu_torch.bench
-   16`` in a child process (one more a section), with
-   ``BENCH_INFER_EXTRAS=fused_tails,int8``, ``BENCH_TRAIN_MODES=base,bn_remat``
-   and a ``BENCH_TOTAL_BUDGET`` of 600 s: yolov7 @640 train steps at batch
-   16 with and without ``bn_remat``, bf16-head requests at batch 16 and 1,
-   the compiled ``nms_single`` of 25,200 candidates (a replayed graph, as
-   JAX's bench times its jit), the fused-tail request at batch 1
-   and the int8 batch. It fails if the bench's last line holds an
-   ``error``, names another device than the card, or lacks one of
-   ``value``, ``train_sweep`` "16" and "16/bn_remat", ``infer_img_s``,
-   ``infer_1_ms``, ``nms_p50_ms``, ``infer_1_ms_fused_tails`` and
-   ``infer_img_s_int8`` > 0. In this process, one call of each function
-   the bench times, counters at 0 around each: K3 and K1 once a request,
-   K1 once in ``nms_single``, K5 24 times in the fused-tail request
-   (``launches_bench`` in the kernels line); ``nms_single``'s one graph
-   for the bench's key, replayed bit-equal to the eager ``nms_core`` (its
-   warm-up, capture and pool); on the same inputs K3 on the
-   bf16 head's maps at batch 16 and 1, K1 on ``nms_single``'s candidates
-   and K5 on the 24 inputs of the batch-1 fused-tail request against their
-   plain versions, K5 timed there beside its bound. Prints a ``bench`` JSON
-   line (the bench's line, each pass's ms and each section's peak memory,
-   the bench's ``infer_img_s`` beside phase 4's default img/s and its
-   ``value`` beside phase 5's step img/s, not gated); the bench's stderr is
-   kept in ``runs/chip_smoke_bench/``. ``--only bench`` runs this phase
-   alone (no result line).
 
 Kernel times are device times: ``cuda_ms`` holds the stream with a sleep
 kernel while the host enqueues the timed calls, so that a kernel shorter
@@ -263,7 +244,7 @@ Launch counts under replay: a wrapper's ``.launches`` counter moves where it
 launches its kernel outside a graph; inside a captured request the launch
 goes into the capture's record (``utils/capture.CapturedCall.launches``),
 and each replay adds that record to the counters. Every count below (the
-exact K3, K4, K5 checks of phases 3-11 and the ``launches_*`` keys of the
+exact K3, K4, K5 checks of phases 3-10 and the ``launches_*`` keys of the
 kernels line) is thus the captured launches times the replays plus the
 launches outside a graph; a capture's warm-up counts nowhere.
 
@@ -272,10 +253,10 @@ error of each kernel; ``launches`` on phase 4's main paths,
 ``launches_validate_map`` on phase 6's ``validate_map`` calls,
 ``launches_model_zoo`` on phase 7's counted requests and ``launches_serve``
 on phase 8's serving window, ``launches_parallel`` on phase 9's counted
-calls, ``launches_native_staging`` on phase 10's run, ``launches_bench`` on
-phase 11's calls; K3's 4-level time and bound at the P6 shape; K5's time,
-bound and error at batch 1 (``*_bs1``); a sixth entry, ``stage_letterbox``, whose
-``launches`` are phase 10's run's, its main path; a seventh, ``warp_tiles``,
+calls, ``launches_native_staging`` on phase 10's run; K3's 4-level time
+and bound at the P6 shape; phase 2's checks at batch 1 (``*_bs1``: K3's and
+K1's error, K5's time, plain time, bound and error); a sixth entry,
+``stage_letterbox``, whose ``launches`` are phase 10's run's, its main path; a seventh, ``warp_tiles``,
 with the ``warp_tiles`` JSON line's record, printed after phase 10 by
 ``warp_tiles_alone``: the kernel against the plain augmentation at 32
 singles and 32 mosaics of 640, each path's ms, plain ms and byte bound, and
@@ -351,14 +332,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, hold: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
-def nms_inputs(rs, k: int, bs: int):
-    """Top-k candidates of ``bs`` images of 25200 random predictions, built
-    like the JAX bench's NMS section (bench.py:237-240)."""
+def nms_preds(rs, bs: int):
+    """``bs`` images of 25200 random predictions on the card, built like the
+    JAX bench's NMS section (bench.py:237-240)."""
     import torch
-    from yolo_continuous_tpu_torch.ops.nms import top_candidates
     pred = torch.from_numpy(rs.rand(bs, 25200, 85).astype("float32"))
     pred[..., 2:4] = pred[..., 2:4] * 0.1 + 0.01
-    boxes, _, classes, valid = top_candidates(pred.cuda(), CONF, k)
+    return pred.cuda()
+
+
+def nms_inputs(rs, k: int, bs: int):
+    """Top-k candidates of ``bs`` images of ``nms_preds``."""
+    from yolo_continuous_tpu_torch.ops.nms import top_candidates
+    boxes, _, classes, valid = top_candidates(nms_preds(rs, bs), CONF, k)
     return boxes.contiguous(), classes, valid
 
 
@@ -461,8 +447,9 @@ def check_forms(what, kernel, maps) -> None:
                  f"{int((tma != strided).sum())} values")
 
 
-def phase_kernels(spec, bin_spec, k5_shapes):
-    """Each kernel against its plain version at main-path shapes."""
+def phase_kernels(spec, bin_spec, k5_shapes, k5_shapes_bs1):
+    """Each kernel against its plain version at main-path shapes, then at
+    the single-image request's (``check_batch_one``)."""
     import torch
     from yolo_continuous_tpu_torch.kernels.decode import form_for, launch_form
     from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
@@ -551,6 +538,8 @@ def phase_kernels(spec, bin_spec, k5_shapes):
 
     report["decode_level_bin"] = check_bin_decode(g, bin_spec)
     report["fused_conv"] = check_fused_conv(g, k5_shapes)
+    for name, fields in check_batch_one(spec, k5_shapes_bs1).items():
+        report[name].update(fields)
     return report
 
 
@@ -792,6 +781,85 @@ def check_fused_conv(g, shapes) -> dict:
                 plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
                 bound_by="operations" if tot["ops_s"] > tot["bytes_s"] else "bytes",
                 library_ms=min(tot["cudnn_ms"], tot["cublas_ms"]))
+
+
+def check_batch_one(spec, k5_shapes) -> dict:
+    """The kernels of the single-image request at batch 1, each against its
+    plain version: K3 on the three 640 px levels of a bf16 head's maps (cast
+    to fp32, as the decode casts them) in the TMA form; ``nms_single`` on one
+    25,200-row draw, K1 once in its compiled form, bit-equal to the eager
+    ``nms_core``, and K1 on its candidates equal to the plain keep-set; K5
+    at the 24 shapes of the fused-tail request at batch 1 on O(1) inputs
+    (the request's own activations are too small under random weights for
+    an absolute tolerance to test anything), timed beside its plain version
+    and its bound. Returns the ``*_bs1`` fields of each kernel's row."""
+    import torch
+    from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda, form_for
+    from yolo_continuous_tpu_torch.kernels.fused_conv import (fused_pointwise_conv_cuda,
+                                                              fused_pointwise_conv_plain)
+    from yolo_continuous_tpu_torch.kernels.nms import nms_suppress, nms_suppress_tiled
+    from yolo_continuous_tpu_torch.nn.heads import head_view
+    from yolo_continuous_tpu_torch.ops import nms as nms_ops
+    from yolo_continuous_tpu_torch.ops.decode import decode_level
+    from yolo_continuous_tpu_torch.ops.nms import suppress_plain, top_candidates
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    na, no = spec.na, spec.nc + 5
+    with torch.inference_mode():
+        maps = [head_view((torch.randn(1, na * no, SIZE // s, SIZE // s, device="cuda",
+                                       generator=g) * 3.0).to(torch.bfloat16), na, no).float()
+                for s in spec.strides]
+        if form_for(maps) != "tma":
+            fail(f"K3 at batch 1 on a bf16 head's maps takes the {form_for(maps)} form, not tma")
+        got = decode_outputs_cuda(maps, spec.anchors, spec.strides, True)
+        plain = torch.cat([decode_level(m, torch.tensor(a), float(s), True)
+                           for m, a, s in zip(maps, spec.anchors, spec.strides)], 1)
+        k3_err = (got - plain).abs().max().item()
+        if k3_err > DECODE_TOL:
+            fail(f"K3 at batch 1 on a bf16 head's maps: max abs err {k3_err}")
+    del maps, got, plain
+
+    # nms_single on a CUDA tensor replays one graph for its key, K1 inside
+    p = nms_preds(np.random.RandomState(2), 1)[0]
+    n1, n2 = nms_suppress.launches, nms_suppress_tiled.launches
+    got = nms_ops.nms_single(p, CONF, IOU, 300)
+    torch.cuda.synchronize()
+    if (nms_suppress.launches - n1, nms_suppress_tiled.launches - n2) != (1, 0):
+        fail(f"nms_single: K1 {nms_suppress.launches - n1} and K2 "
+             f"{nms_suppress_tiled.launches - n2} launches, expected 1 and 0")
+    keys = [k for k in nms_ops._graphs if k[0] == "_single_core" and k[2] == tuple(p.shape)]
+    if len(keys) != 1 or nms_ops._graphs[keys[0]].launches.get("nms_suppress") != 1:
+        fail(f"nms_single: {len(keys)} graphs for its key, or its graph holds no single K1")
+    diff = differing(got, [t[0] for t in nms_ops.nms_core(p[None], CONF, IOU, 300)])
+    if diff or not got[3].any():
+        fail(f"nms_single: the compiled call differs from the eager one in {diff}, or kept none")
+    with torch.inference_mode():
+        boxes, _, classes, valid = top_candidates(p[None], CONF, 300)
+        keep = nms_suppress(boxes, classes, valid, IOU)
+        want = suppress_plain(boxes, classes, valid, IOU)
+    if not torch.equal(keep, want):
+        fail("K1 on nms_single's candidates differs from the plain version")
+    k1_err = (keep.float() - want.float()).abs().max().item()
+
+    k5 = dict.fromkeys(("ms", "plain_ms", "bound_ms", "max_abs_err"), 0.0)
+    for c, n, h, w in k5_shapes:
+        args = k5_inputs(g, 1, c, n, h, w, torch.bfloat16)
+        with torch.inference_mode():
+            k5["max_abs_err"] = max(k5["max_abs_err"], k5_compare(args, K5_TOL["bf16"]))
+            if not torch.equal(fused_pointwise_conv_cuda(*args),
+                               fused_pointwise_conv_cuda(*args)):
+                fail(f"K5 at {tuple(args[0].shape)}: two calls on one input differ")
+            k5["ms"] += cuda_ms(lambda: fused_pointwise_conv_cuda(*args))
+            k5["plain_ms"] += cuda_ms(lambda: fused_pointwise_conv_plain(*args), iters=5)
+        nbytes = (c * h * w + n * c + n * h * w) * 2 + 2 * n * 4
+        k5["bound_ms"] += max(nbytes / HBM_BYTES_S, 2.0 * n * c * h * w / BF16_FLOP_S) * 1e3
+    print(f"batch 1: K3 on a bf16 head's maps, max abs err {k3_err:.3g}; nms_single bit-equal to "
+          f"eager, K1 keep-set equal; K5 at the fused-tail request's 24 shapes {k5['ms']:.4f} ms "
+          f"(bound {k5['bound_ms']:.4f}, plain {k5['plain_ms']:.4f}), max abs err "
+          f"{k5['max_abs_err']:.3g}", flush=True)
+    return {"decode_level": {"max_abs_err_bs1": k3_err},
+            "nms_suppress": {"max_abs_err_bs1": k1_err},
+            "fused_conv": {f"{k}_bs1": v for k, v in k5.items()}}
 
 
 def random_weights_plan(model_cfg=None):
@@ -1084,7 +1152,7 @@ def phase_main():
          {"fused_pointwise_conv_cuda": 72, "decode_outputs_cuda": 3, "decode_outputs_bin_cuda": 0,
           "bn_act": 3 * (YOLOV7_EVAL_BNS - 24)}),
     )
-    dets, img_s = {}, {}
+    dets = {}
     for label, kw, max_dets, must, exact in paths:
         det = dets[label] = Detector(random_weights_plan(kw.get("model_cfg")), device="cuda",
                                      seed=0, fused_tails=kw.get("fused_tails"))
@@ -1126,7 +1194,6 @@ def phase_main():
             fail(f"{label} path: the decode takes the {form} form, not tma")
         del maps
         stages = stage_times(det, images, decode)
-        img_s[label] = stages["img_s"]
         if label in ("default", "fused_tails"):
             # host time to enqueue one request on an idle card: near total_ms,
             # the host and not the card sets the pace
@@ -1162,13 +1229,13 @@ def phase_main():
                     median_total_ms=float(np.median(t["total_ms"])), **t)
         for label, t in turns.items()}}), flush=True)
 
-    # the captured request against the eager one, where the bench times them
+    # the captured request against the eager one, at batch 16 and 1
     for label in ("default", "fused_tails"):
         for bs in (BS, 1):
             rec = captured_vs_eager(f"{label} bs {bs}", dets[label], images[:bs])
             print(json.dumps({"captured_vs_eager": dict(path=label, batch=bs, **rec)}),
                   flush=True)
-    return total, img_s["default"]
+    return total
 
 
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch",
@@ -1504,7 +1571,6 @@ def phase_train():
         launches_per_step=prof.get("launches_per_call"), profile=prof)}), flush=True)
     print(json.dumps({"captured_vs_eager_train": captured}), flush=True)
     torch.cuda.empty_cache()
-    return BS / float(np.median(step_ms)) * 1e3
 
 
 def rel_l2(got: dict, want: dict) -> float:
@@ -3623,190 +3689,6 @@ def phase_native_staging():
     return launches, row
 
 
-# ---------------------------------------------------------------- phase 11
-
-# the port's bench as the smoke test runs it: every section and lever of the
-# JAX bench, within a budget that keeps the whole script inside its limit
-BENCH_ENV = {"BENCH_INFER_EXTRAS": "fused_tails,int8", "BENCH_TRAIN_MODES": "base,bn_remat",
-             "BENCH_TOTAL_BUDGET": "600", "BENCH_INFER_RESERVE": "240"}
-BENCH_KEYS = ("value", "infer_img_s", "infer_1_ms", "nms_p50_ms", "infer_1_ms_fused_tails",
-              "infer_img_s_int8")
-
-
-def run_bench() -> tuple:
-    """``python -m yolo_continuous_tpu_torch.bench 16`` in its own process
-    (which starts one a section) under ``BENCH_ENV``; returns its last line
-    and its ``[bench passes]`` records. Past its budget it gets a SIGTERM,
-    which prints its line and stops its section."""
-    from yolo_continuous_tpu_torch import bench
-    env = dict(os.environ, **BENCH_ENV)
-    proc = subprocess.Popen([sys.executable, "-m", "yolo_continuous_tpu_torch.bench", str(BS)],
-                            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
-    try:
-        out, err = proc.communicate(timeout=int(BENCH_ENV["BENCH_TOTAL_BUDGET"]) + 60)
-    except subprocess.TimeoutExpired:
-        proc.terminate()
-        try:
-            out, err = proc.communicate(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, err = proc.communicate()
-    root = os.path.join(HERE, "runs", "chip_smoke_bench")
-    os.makedirs(root, exist_ok=True)
-    with open(os.path.join(root, "bench.stderr"), "w") as f:
-        f.write(err)
-    for line in err.splitlines():
-        if line.startswith("[bench "):
-            print(f"  {line}", flush=True)
-    lines = out.strip().splitlines()
-    if proc.returncode != 0 or not lines:
-        fail(f"bench: exit code {proc.returncode}, stderr {err[-1500:]}")
-    try:
-        result = json.loads(lines[-1])
-    except json.JSONDecodeError:
-        fail(f"bench: the last line is not JSON: {lines[-1][:300]}")
-    passes = [json.loads(line[len(bench.PASSES):]) for line in err.splitlines()
-              if line.startswith(bench.PASSES)]
-    return result, passes
-
-
-def check_bench_result(result) -> None:
-    """The bench's line: no ``error``, the card as its device, every key > 0."""
-    if "error" in result:
-        fail(f"bench: error {result['error']}")
-    if result.get("device", {}).get("backend") != "cuda":
-        fail(f"bench: ran on {result.get('device')}, not the card")
-    sweep = result.get("train_sweep") or {}
-    got = {k: result.get(k) for k in BENCH_KEYS}
-    got.update({f"train_sweep[{k!r}]": sweep.get(k) for k in (str(BS), f"{BS}/bn_remat")})
-    bad = {k: v for k, v in got.items() if not (isinstance(v, (int, float)) and v > 0)}
-    if bad:
-        fail(f"bench: keys missing or not > 0: {bad}")
-
-
-def bench_calls(total) -> tuple:
-    """One call of each function the bench times, on its inputs (bs 16 and 1
-    @640, the first NMS draw), each with the counters at 0 just before and
-    read just after: K3 once and K1 once a request, K1 once in
-    ``nms_single``, K5 24 times in the fused-tail request. On the same
-    calls, each kernel against its plain version: K3 on the bf16 head's
-    maps (cast to fp32, in the TMA form) at bs 16 and 1, K1 on
-    ``nms_single``'s candidates, K5 at the 24 shapes of the fused-tail
-    request at batch 1 on O(1) inputs (timed beside its plain version and
-    its bound)."""
-    import torch
-    from yolo_continuous_tpu_torch import bench
-    from yolo_continuous_tpu_torch.detect_api import Detector
-    from yolo_continuous_tpu_torch.kernels.decode import decode_outputs_cuda, form_for
-    from yolo_continuous_tpu_torch.kernels.fused_conv import (fused_pointwise_conv_cuda,
-                                                              fused_pointwise_conv_plain)
-    from yolo_continuous_tpu_torch.kernels.nms import nms_suppress
-    from yolo_continuous_tpu_torch.ops.decode import decode_level
-    from yolo_continuous_tpu_torch.ops.nms import suppress_plain, top_candidates
-
-    plan = bench.infer_plan(SIZE)
-    variants, singles, preds = bench.infer_inputs(BS, SIZE)
-    x16, x1, p = (torch.from_numpy(a[0]).cuda() for a in (variants, singles, preds))
-    del variants, singles, preds
-    det = Detector(plan, device="cuda", head_dtype=torch.bfloat16)
-    det_f = Detector(plan, device="cuda", head_dtype=torch.bfloat16, fused_tails=True)
-    det_q = Detector(plan, device="cuda", head_dtype=torch.bfloat16, quantize=True)
-    det_q.calibrate(x16)
-    calls = {"infer_img_s": (bench.infer_step(det), x16, BS),
-             "infer_1_ms": (bench.infer_step(det), x1, 1),
-             "nms_p50_ms": (bench.nms_step, p, None),
-             "infer_1_ms_fused_tails": (bench.infer_step(det_f), x1, 1),
-             "infer_img_s_int8": (bench.infer_step(det_q), x16, BS)}
-    want = {key: {"decode_outputs_cuda": int(bs is not None), "nms_suppress": 1,
-                  "fused_pointwise_conv_cuda": 24 if key == "infer_1_ms_fused_tails" else 0,
-                  "nms_suppress_tiled": 0, "decode_outputs_bin_cuda": 0, "stage_letterbox": 0,
-                  "warp_tiles": 0, "bn_act": 0 if bs is None else YOLOV7_EVAL_BNS - 24 * (
-                      key == "infer_1_ms_fused_tails")}
-            for key, (_, _, bs) in calls.items()}
-    zero = torch.zeros((), device="cuda")
-    per_call = {}
-    for key, (fn, x, bs) in calls.items():
-        torch.cuda.synchronize()
-        for c in counters():
-            c.launches = 0
-        out = fn(x, zero)
-        torch.cuda.synchronize()
-        per_call[key] = {c.__name__: c.launches for c in counters()}
-        if bs is None:
-            if out[0].shape != (300, 4) or not torch.isfinite(out[0]).all() or not out[3].any():
-                fail(f"bench {key}: nms_single gave {tuple(out[0].shape)}, none kept or not finite")
-        else:
-            check_request(f"bench {key}", out, det.spec.nc, bs)
-        if per_call[key] != want[key]:
-            fail(f"bench {key}: launches {per_call[key]}, expected {want[key]}")
-    for name, n in ((c.__name__, sum(pc[c.__name__] for pc in per_call.values()))
-                    for c in counters()):
-        total[name] += n
-
-    # the timed nms_single is the compiled one, as JAX's bench times its jit:
-    # one graph for the bench's key (K1 inside), replayed bit-equal to the
-    # eager function on the same input
-    from yolo_continuous_tpu_torch.ops import nms as nms_ops
-    keys = [k for k in nms_ops._graphs if k[0] == "_single_core" and k[2] == tuple(p.shape)]
-    if len(keys) != 1:
-        fail(f"bench: nms_single made {len(keys)} graphs for its key, not one")
-    call = nms_ops._graphs[keys[0]]
-    got = bench.nms_step(p, zero)
-    diff = differing(got, [t[0] for t in nms_ops.nms_core((p + zero)[None], bench.CONF,
-                                                          bench.IOU, bench.MAX_DET)])
-    if diff or call.launches.get("nms_suppress") != 1:
-        fail(f"bench: the compiled nms_single differs from the eager one in {diff}, or its "
-             f"graph holds {call.launches}, not one K1")
-    checks = {"nms_single_compiled": dict(bit_equal_to_eager=True, shape=list(p.shape),
-                                          launches_per_replay=call.launches,
-                                          warmup_ms=call.warmup_ms, capture_ms=call.capture_ms,
-                                          pool_gib=call.pool_bytes / 2 ** 30)}
-    spec = det.spec
-    with torch.inference_mode():
-        for bs, x in ((BS, x16), (1, x1)):
-            maps = [m.float() for m in det.forward(x)]
-            if form_for(maps) != "tma":
-                fail(f"bench: K3 at bs {bs} takes the {form_for(maps)} form, not tma")
-            got = decode_outputs_cuda(maps, spec.anchors, spec.strides, True)
-            plain = torch.cat([decode_level(m, torch.tensor(a), float(s), True)
-                               for m, a, s in zip(maps, spec.anchors, spec.strides)], 1)
-            err = (got - plain).abs().max().item()
-            if err > DECODE_TOL:
-                fail(f"bench: K3 at bs {bs} on the bf16 head's maps: max abs err {err}")
-            checks[f"k3_bs{bs}_max_abs_err"] = err
-        boxes, _, classes, valid = top_candidates(p[None], CONF, 300)
-        keep = nms_suppress(boxes, classes, valid, IOU)
-        if not torch.equal(keep, suppress_plain(boxes, classes, valid, IOU)):
-            fail("bench: K1 on nms_single's candidates differs from the plain version")
-        checks["k1_nms_single_keep_equal"] = True
-    del det, det_f, det_q
-    torch.cuda.empty_cache()
-
-    # K5 at the 24 shapes of the fused-tail request at batch 1, on O(1)
-    # inputs as phase 2 draws them: the request's own activations are too
-    # small under random weights for an absolute tolerance to test anything
-    shapes = fused_tail_shapes(1)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    k5 = dict.fromkeys(("ms", "plain_ms", "bound_ms", "max_abs_err"), 0.0)
-    for c, n, h, w in shapes:
-        args = k5_inputs(g, 1, c, n, h, w, torch.bfloat16)
-        with torch.inference_mode():
-            k5["max_abs_err"] = max(k5["max_abs_err"], k5_compare(args, K5_TOL["bf16"]))
-            if not torch.equal(fused_pointwise_conv_cuda(*args),
-                               fused_pointwise_conv_cuda(*args)):
-                fail(f"bench: K5 at {tuple(args[0].shape)}: two calls on one input differ")
-            k5["ms"] += cuda_ms(lambda: fused_pointwise_conv_cuda(*args))
-            k5["plain_ms"] += cuda_ms(lambda: fused_pointwise_conv_plain(*args), iters=5)
-        nbytes = (c * h * w + n * c + n * h * w) * 2 + 2 * n * 4
-        k5["bound_ms"] += max(nbytes / HBM_BYTES_S, 2.0 * n * c * h * w / BF16_FLOP_S) * 1e3
-    checks["k5_bs1"] = dict(calls=len(shapes), form="wgmma", **k5)
-    print(f"bench: K5 at batch 1 at the fused-tail request's 24 shapes: {k5['ms']:.4f} ms "
-          f"(bound {k5['bound_ms']:.4f}, plain {k5['plain_ms']:.4f}), max abs err "
-          f"{k5['max_abs_err']:.3g}", flush=True)
-    return per_call, checks
-
-
 def warp_tiles_alone() -> dict:
     """``kernels/augment.py::warp_tiles`` at the training cells' shape: 32
     singles and 32 mosaics at 640 from a pool of 128 letterboxed photo-like
@@ -3965,34 +3847,10 @@ def bn_act_alone(batch: int = 32) -> dict:
     return rec
 
 
-def phase_bench(beside=None):
-    """The port's bench on the card, then its timed functions counted and
-    their kernels held against their plain versions in this process."""
-    import torch
-    t_phase = time.perf_counter()
-    result, passes = run_bench()
-    check_bench_result(result)
-    total = {fn.__name__: 0 for fn in counters()}
-    per_call, checks = bench_calls(total)
-    beside = beside or {}
-    rec = dict(result=result, passes=passes, env=BENCH_ENV, launches_per_call=per_call,
-               kernels_at_bench_shapes=checks,
-               # phase 4's default path (fp32 head) and phase 5's step, not gated
-               beside=dict(bench_infer_img_s=result["infer_img_s"],
-                           phase4_default_img_s=beside.get("infer_img_s", "phase 4 not run"),
-                           bench_value=result["value"],
-                           phase5_train_img_s=beside.get("train_img_s", "phase 5 not run")),
-               phase_s=time.perf_counter() - t_phase)
-    print(json.dumps({"bench": rec}), flush=True)
-    del rec
-    torch.cuda.empty_cache()
-    return total, checks["k5_bs1"]
-
-
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port")
-    ap.add_argument("--only", choices=["serve", "parallel_and_tools", "native_staging", "bench"],
+    ap.add_argument("--only", choices=["serve", "parallel_and_tools", "native_staging"],
                     help="build the kernels and run this phase alone (a debugging aid: "
                          "it prints no result line)")
     ap.add_argument("--serve-clients", nargs=2, metavar=("PORT", "JPEGS"),
@@ -4022,7 +3880,7 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
     if args.only:
         {"serve": phase_serve, "parallel_and_tools": phase_parallel_and_tools,
-         "native_staging": phase_native_staging, "bench": phase_bench}[args.only]()
+         "native_staging": phase_native_staging}[args.only]()
         print(f"chip_smoke: --only {args.only} passed (no result line)", flush=True)
         return
 
@@ -4031,7 +3889,7 @@ def main() -> None:
                             plan.num_labels, plan.anchors_mask)
     bin_spec = build_model_spec(ibin_net(), plan.image_chan, plan.anchors, plan.num_labels,
                                 plan.anchors_mask)
-    k5_shapes = fused_tail_shapes()
+    k5_shapes, k5_shapes_bs1 = fused_tail_shapes(), fused_tail_shapes(1)
     seconds, t_last = {}, time.perf_counter()
 
     def timed(name, result=None):
@@ -4040,10 +3898,10 @@ def main() -> None:
         t_last = time.perf_counter()
         return result
 
-    report = timed("kernels", phase_kernels(spec, bin_spec, k5_shapes))
+    report = timed("kernels", phase_kernels(spec, bin_spec, k5_shapes, k5_shapes_bs1))
     timed("reference", phase_reference())
-    launches, main_img_s = timed("main", phase_main())
-    train_img_s = timed("train", phase_train())
+    launches = timed("main", phase_main())
+    timed("train", phase_train())
     timed("train_reference", phase_train_reference())
     launches_validate_map = timed("train_run", phase_train_run())
     launches_model_zoo, k3_p6 = timed("model_zoo", phase_model_zoo())
@@ -4052,8 +3910,6 @@ def main() -> None:
     launches_native, stager = timed("native_staging", phase_native_staging())
     warps = timed("warp_tiles", warp_tiles_alone())
     bn = timed("bn_act", bn_act_alone())
-    launches_bench, k5_bs1 = timed("bench", phase_bench(dict(infer_img_s=main_img_s,
-                                                             train_img_s=train_img_s)))
     print(json.dumps({"phase_seconds": dict(seconds, total=sum(seconds.values()))}),
           flush=True)
 
@@ -4075,16 +3931,15 @@ def main() -> None:
     for name, (src, replaces, counter) in meta.items():
         r = report[name]
         # the form timed beside the main one: K3's and K4's strided form, K5's mma.sync form;
-        # K1's times at 300 x 1 and 1024 x 16, its launch floor and host time
+        # K1's times at 300 x 1 and 1024 x 16, its launch floor and host time; K3, K1 and K5
+        # at batch 1 (check_batch_one)
         other = {k: r[k] for k in ("strided_ms", "mma_sync_ms", "ms_300x1", "ms_1024x16",
                                    "launch_floor_ms", "host_us", "ms_25200x2",
-                                   "bound_ms_25200x2") if k in r}
+                                   "bound_ms_25200x2", "max_abs_err_bs1", "ms_bs1",
+                                   "plain_ms_bs1", "bound_ms_bs1") if k in r}
         if name == "decode_level":  # K3 at the P6 shape: 4 levels, 16 x 102,000 x 85
             other.update({f"{k}_p6": k3_p6[k] for k in ("ms", "strided_ms", "bound_ms",
                                                          "max_abs_err")})
-        if name == "fused_conv":    # K5 at batch 1: the bench's fused-tail request, 24 calls
-            other.update({f"{k}_bs1": k5_bs1[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                           "max_abs_err")})
         kernels.append(dict(name=name, route="cuda", source=f"yolo_continuous_tpu_torch/{src}",
                             replaces=replaces, launches=launches[counter],
                             launches_validate_map=launches_validate_map[counter],
@@ -4092,7 +3947,6 @@ def main() -> None:
                             launches_serve=launches_serve[counter],
                             launches_parallel=launches_parallel[counter],
                             launches_native_staging=launches_native[counter],
-                            launches_bench=launches_bench[counter],
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], **other))
@@ -4110,7 +3964,7 @@ def main() -> None:
                         launches_serve=launches_serve[counter],
                         launches_parallel=launches_parallel[counter],
                         launches_native_staging=launches_native[counter],
-                        launches_bench=launches_bench[counter], **stager))
+                        **stager))
     # the augmentation's warps replace no TPU kernel either; their main path
     # is training, phase 10's Trainer.run (one launch a path a step)
     counter = "warp_tiles"
@@ -4125,7 +3979,6 @@ def main() -> None:
                         launches_serve=launches_serve[counter],
                         launches_parallel=launches_parallel[counter],
                         launches_native_staging=launches_native[counter],
-                        launches_bench=launches_bench[counter],
                         **{k: warps["single"][k] + warps["mosaic"][k]
                            for k in ("ms", "plain_ms", "bound_ms")},
                         bound_by="bytes", library_ms=None, single=warps["single"],
@@ -4143,7 +3996,7 @@ def main() -> None:
                         launches_serve=launches_serve[counter],
                         launches_parallel=launches_parallel[counter],
                         launches_native_staging=launches_native[counter],
-                        launches_bench=launches_bench[counter], library_ms=None,
+                        library_ms=None,
                         **{k: bn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                               "roofline_share", "shape")}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,6 +21,24 @@ YOLOV7_640_FUSED_TAILS = [
     (1024, 256, 40, 40), (1024, 512, 20, 20), (1024, 512, 20, 20), (2048, 512, 20, 20)]
 
 
+NVAR = 4                 # infer_inputs' draws of each kind
+NMS_ROWS = 25200         # a 640 px plan's candidates
+
+
+def infer_inputs(batch=16, size=640):
+    """Inputs drawn from one ``RandomState(0)`` in this order: NVAR batches,
+    NVAR single images, NVAR NMS inputs of ``NMS_ROWS`` x 85 (cx, cy in
+    [0, 1), w, h in [0.01, 0.11), obj and 80 class scores in [0, 1)). fp32
+    numpy arrays."""
+    rs = np.random.RandomState(0)
+    variants = [rs.rand(batch, size, size, 3).astype(np.float32) for _ in range(NVAR)]
+    singles = [rs.rand(1, size, size, 3).astype(np.float32) for _ in range(NVAR)]
+    preds = [np.concatenate([rs.rand(NMS_ROWS, 2), rs.rand(NMS_ROWS, 2) * 0.1 + 0.01,
+                             rs.rand(NMS_ROWS, 1), rs.rand(NMS_ROWS, 80)], -1).astype(np.float32)
+             for _ in range(NVAR)]
+    return variants, singles, preds
+
+
 def lively(tree, rs: np.random.RandomState, parent: str = ""):
     """Redraw every leaf of a JAX params / batch_stats tree (nested dicts).
 

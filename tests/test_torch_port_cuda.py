@@ -19,8 +19,8 @@ import pytest
 import torch
 
 from _torch_port import (ANCHORS as ANCHOR_ROWS, FUSE_NET, YOLOV7_640_FUSED_TAILS, ZOO_GROUPS,
-                         ZOO_NETS, ibin_logits, min_bin_gap, spread_weights, tiny_plan_cfg,
-                         write_dataset, write_staging_files, zoo_net)
+                         ZOO_NETS, ibin_logits, infer_inputs, min_bin_gap, spread_weights,
+                         tiny_plan_cfg, write_dataset, write_staging_files, zoo_net)
 from yolo_continuous_tpu_torch.config.plan import TrainPlan
 from yolo_continuous_tpu_torch.detect_api import Detector
 from yolo_continuous_tpu_torch.kernels import bin_decode, decode
@@ -1352,10 +1352,10 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
     assert TD._rel_l2(got["state"]["model"], state["model"].state_dict()) < 1e-4
 
 
-# --------------------------------------------------------------------------- batch 1, the bench's
-# single-image requests (yolo_continuous_tpu_torch/bench.py): K3 on the three
-# 640 px levels of a bf16 head (cast to fp32, as the decode does), K1 at
-# 300 x 1 through nms_single (K5 at batch 1: test_fused_conv_wgmma_form_at_main_path_shapes)
+# --------------------------------------------------------------------------- batch 1, the
+# single-image request: K3 on the three 640 px levels of a bf16 head (cast to
+# fp32, as the decode does), K1 at 300 x 1 through nms_single (K5 at batch 1:
+# test_fused_conv_wgmma_form_at_main_path_shapes)
 
 @pytest.mark.parametrize("normalized", [True, False])
 def test_decode_tma_form_on_a_bf16_head_at_batch_one(cuda, normalized):
@@ -1372,12 +1372,11 @@ def test_decode_tma_form_on_a_bf16_head_at_batch_one(cuda, normalized):
     assert torch.equal(got, strided)
 
 
-def test_bench_nms_single_on_the_card_matches_the_cpu(cuda):
-    """``nms_single`` of the bench's first 25,200 x 85 draw: K1 at 300 x 1 on
-    the card gives the CPU's (plain) detections exactly."""
-    from yolo_continuous_tpu_torch import bench
+def test_nms_single_on_the_card_matches_the_cpu(cuda):
+    """``nms_single`` of the first 25,200 x 85 draw of ``infer_inputs``: K1 at
+    300 x 1 on the card gives the CPU's (plain) detections exactly."""
     from yolo_continuous_tpu_torch.ops.nms import nms_single
-    p = torch.from_numpy(bench.infer_inputs(1, 64)[2][0])
+    p = torch.from_numpy(infer_inputs(1, 64)[2][0])
     before = nms_suppress.launches
     got = nms_single(p.to(cuda), 0.25, 0.45, 300)
     torch.cuda.synchronize()
@@ -1385,21 +1384,6 @@ def test_bench_nms_single_on_the_card_matches_the_cpu(cuda):
     for g, w in zip(got, nms_single(p, 0.25, 0.45, 300)):
         assert torch.equal(g.cpu(), w)
 
-
-def test_bench_sections_run_on_the_card(cuda, capsys):
-    """The bench's train and infer sections on the card (yolov7-tiny @64,
-    batch 2): a positive rate and every key of the JAX bench > 0."""
-    import json
-    import math
-    from yolo_continuous_tpu_torch import bench
-    tiny = {"model_cfg": "cfg/net/yolov7-tiny.yaml"}
-    assert bench.bench_train(2, size=64, iters=2, extra_cfg=tiny, device="cuda") > 0
-    bench.section_infer(batch=2, size=64, iters=2, extras=("fused_tails", "int8"), device="cuda",
-                        extra_cfg=tiny)
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert sorted(line) == sorted(("infer_img_s", "infer_1_ms", "nms_p50_ms",
-                                   "infer_1_ms_fused_tails", "infer_img_s_int8"))
-    assert all(math.isfinite(v) and v > 0 for v in line.values())
 
 
 # ---------------------------------------------------------------------------
@@ -2124,13 +2108,12 @@ def test_a_failed_augmentation_capture_raises(cuda, tmp_path, monkeypatch):
                                                   ("batched_nms", 2, 300, "nms_suppress"),
                                                   ("batched_nms", 2, 4096, "nms_suppress_tiled")])
 def test_captured_nms_is_bit_equal_to_eager(cuda, fn, bs, max_det, kernel):
-    """The bench's 25,200 x 85 draws: ``nms_single`` (K1) and ``batched_nms``
-    (K1; K2 at max_det 4096) replay a graph holding the kernel, bit-equal to
-    the eager ``nms_core``; the counters move by the graph's launches a
-    replay; the key's graph is reused."""
-    from yolo_continuous_tpu_torch import bench
+    """The 25,200 x 85 draws of ``infer_inputs``: ``nms_single`` (K1) and
+    ``batched_nms`` (K1; K2 at max_det 4096) replay a graph holding the
+    kernel, bit-equal to the eager ``nms_core``; the counters move by the
+    graph's launches a replay; the key's graph is reused."""
     from yolo_continuous_tpu_torch.ops import nms as nms_ops
-    preds = [torch.from_numpy(a).to(cuda) for a in bench.infer_inputs(1, 64)[2]]
+    preds = [torch.from_numpy(a).to(cuda) for a in infer_inputs(1, 64)[2]]
     p = preds[0] if bs is None else torch.stack(preds[:bs])
     counter = {"nms_suppress": nms_suppress, "nms_suppress_tiled": nms_suppress_tiled}[kernel]
     nms_ops._graphs.clear()

@@ -36,7 +36,7 @@ def test_every_port_module_is_scanned():
                 "serve.py", "utils/timing.py", "parallel/mesh.py", "parallel/distributed.py",
                 "tools/gen_anchors.py", "tools/gen_annotation.py", "tools/torch_import.py",
                 "tools/torch_export.py", "utils/image.py", "utils/env.py",
-                "data/native_loader.py", "kernels/staging.py", "bench.py"):
+                "data/native_loader.py", "kernels/staging.py"):
         assert f"yolo_continuous_tpu_torch/{rel}" in FILES
 
 
@@ -57,7 +57,7 @@ import yolo_continuous_tpu_torch.ops.sigmoid_bin, yolo_continuous_tpu_torch.ops.
 import yolo_continuous_tpu_torch.train.train_loop, yolo_continuous_tpu_torch.train.checkpoint
 import yolo_continuous_tpu_torch.train.__main__, yolo_continuous_tpu_torch.val
 import yolo_continuous_tpu_torch.data.dataset, yolo_continuous_tpu_torch.data.native_loader
-import yolo_continuous_tpu_torch.kernels.staging, yolo_continuous_tpu_torch.bench
+import yolo_continuous_tpu_torch.kernels.staging
 import yolo_continuous_tpu_torch.ops.augment, yolo_continuous_tpu_torch.ops.enhance
 import yolo_continuous_tpu_torch.ops.preprocess
 import yolo_continuous_tpu_torch.eval.evaluator, yolo_continuous_tpu_torch.eval.validate

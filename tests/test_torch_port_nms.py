@@ -14,7 +14,7 @@ import torch
 
 import jax.numpy as jnp
 
-from _torch_port import min_score_gap
+from _torch_port import infer_inputs, min_score_gap
 from yolo_continuous_tpu.kernels.nms_pallas import pallas_suppress, pallas_suppress_tiled
 from yolo_continuous_tpu.ops import nms as jax_nms
 from yolo_continuous_tpu.ops.boxes import box_iou as jax_box_iou
@@ -126,6 +126,20 @@ def test_nms_single_matches_jax():
     keep = np.asarray(ref[3])
     np.testing.assert_array_equal(ours[3].numpy(), keep)
     np.testing.assert_allclose(ours[0].numpy()[keep], np.asarray(ref[0])[keep], atol=1e-6)
+
+
+def test_nms_single_matches_jax_exactly():
+    """A full 640 px plan's candidates (25,200 x 85, 80 classes) to 300 kept:
+    the keep-set, its order and every output equal JAX's."""
+    p = infer_inputs(2, 64)[2][0]
+    ours = nms.nms_single(torch.from_numpy(p), 0.25, 0.45, 300)
+    ref = jax_nms.nms_single(jnp.asarray(p), 0.25, 0.45, 300)
+    score = p[:, 4] * p[:, 5:].max(-1)
+    assert min_score_gap(np.where(score >= 0.25, score, -1.0)[None], 300) > 0   # no tied rank
+    np.testing.assert_array_equal(ours[3].numpy(), np.asarray(ref[3]))         # keep-set, in order
+    assert int(ours[3].sum()) > 0     # (random boxes of 80 classes: the top 300 rarely overlap)
+    for o, r in zip(ours[:3], ref[:3]):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
 
 
 def test_yolo_correct_boxes_match_jax():

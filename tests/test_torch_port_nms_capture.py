@@ -19,7 +19,7 @@ import yaml
 import jax.numpy as jnp
 
 from yolo_continuous_tpu.ops import nms as jax_nms
-from yolo_continuous_tpu_torch import bench, detect_api
+from yolo_continuous_tpu_torch import detect_api
 from yolo_continuous_tpu_torch.config.plan import TrainPlan
 from yolo_continuous_tpu_torch.detect_api import Detector
 from yolo_continuous_tpu_torch.ops import nms
@@ -201,22 +201,3 @@ def test_the_detectors_capture_calls_the_eager_core(monkeypatch, tmp_path):
         torch.set_num_threads(n)
     assert len(CpuGraph.made) == 1 and CpuGraph.made[0].replays == 2
     assert len(nms._graphs) == 0
-
-
-def test_the_bench_times_replays_after_one_capture(compiled):
-    """``call_ms`` on ``nms_step`` (the bench's ``nms_p50_ms``): its warm call
-    captures the graph, and every timed call replays it."""
-    preds = [torch.from_numpy(a) for a in bench.infer_inputs(1, 64)[2]]
-    seen = []
-
-    def step(p, carry):
-        out = bench.nms_step(p, carry)
-        seen.append(len(compiled.made))
-        return out
-
-    times = bench.call_ms(step, preds, 3, torch.device("cpu"), "nms_p50_ms")
-    assert len(times) == 3 and seen == [1, 1, 1, 1]
-    assert compiled.made[0].replays == 4
-    key = next(iter(nms._graphs))
-    assert key[2:] == ((bench.NMS_ROWS, 85), torch.float32, bench.CONF, bench.IOU, bench.MAX_DET,
-                       True)

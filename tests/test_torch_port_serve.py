@@ -5,8 +5,9 @@ The nine tests of ``tests/test_serve.py`` on the port's ``Detector``
 server's on the same JPEG and weights, one test for each serving fault of
 the JAX package that the port fixes (a raising reload, the lock held over a
 checkpoint read, unbounded client priorities, unframed ``/detect`` bodies),
-and the watcher picking up the port trainer's ``.train.pt``. The priority
-test waits until the recorder is entered, not until the queue is empty.
+the watcher picking up the port trainer's ``.train.pt``, and the server's
+refusals of outside input, one case each. The priority test waits until the
+recorder is entered, not until the queue is empty.
 """
 import http.client
 import json
@@ -565,6 +566,111 @@ def test_watcher_picks_up_a_train_checkpoint(tmp_path):
         assert os.path.exists(path)
     finally:
         eng.close()
+
+
+# ---------------------------------------------------------------- refusals of outside input
+
+SMALL_BODY = 64           # serve.MAX_BODY where a case needs a body over it
+
+
+@pytest.fixture(scope="module")
+def tiny_v7_port():
+    """One server of yolov7-tiny at 64 px for every refusal case; a 50 ms fill
+    wait, so that no batch can finish within a zero submit timeout."""
+    cfg = _plan_cfg()
+    cfg["model_cfg"] = "cfg/net/yolov7-tiny.yaml"
+    plan = TrainPlan(cfg)
+    plan.save_path = "/nonexistent/x.msgpack"
+    srv = make_server(plan, port=_free_port(), batch_size=2, max_wait_ms=50.0, conf=0.0,
+                      nms=0.5, detector=_detector(plan))
+    try:
+        yield srv, _serve(srv)
+    finally:
+        _close(srv)
+
+
+def _small_max_body(srv, monkeypatch):
+    monkeypatch.setattr(serve_mod, "MAX_BODY", SMALL_BODY)
+
+
+def _no_cv2(srv, monkeypatch):
+    monkeypatch.setattr(serve_mod, "cv2", None)
+
+
+def _zero_submit_timeout(srv, monkeypatch):
+    monkeypatch.setattr(srv.engine, "submit_timeout", 0.0)
+
+
+_JPEG = _jpeg()
+_HIDDEN = b"GET /stats HTTP/1.1\r\nHost: x\r\n\r\n"   # a request inside a malformed body
+
+
+@pytest.mark.parametrize("method,path,body,headers,patch,status,error,closes", [
+    pytest.param("GET", "/nope", None, {}, None, 404, "not found", False, id="get-unknown-path"),
+    pytest.param("POST", "/nope", _JPEG, {}, None, 404, "not found", True,
+                 id="post-unknown-path"),
+    pytest.param("POST", "/detect/a/b", _JPEG, {}, None, 404, "not found", True,
+                 id="detect-a-b"),
+    pytest.param("POST", "/detect/nope", _JPEG, {}, None, 404, "unknown model 'nope'", True,
+                 id="unknown-model"),
+    pytest.param("POST", "/detect?conf=x", _JPEG, {}, None, 400, "bad conf parameter", True,
+                 id="bad-conf"),
+    pytest.param("POST", "/detect", b"\xff" * (SMALL_BODY + 1), {}, _small_max_body, 413,
+                 f"image body over {SMALL_BODY} bytes", True, id="body-over-max-body"),
+    pytest.param("POST", "/detect", b"\x00" * 32, {}, None, 400, "undecodable image", False,
+                 id="undecodable"),
+    pytest.param("POST", "/detect", b"", {}, None, 400, "undecodable image", False,
+                 id="empty-body"),
+    pytest.param("POST", "/detect", b"zz\r\n" + _HIDDEN, {"Transfer-Encoding": "chunked"}, None,
+                 400, "undecodable image", True, id="malformed-chunk-size"),
+    pytest.param("POST", "/models/default/reload", b"zz\r\n" + _HIDDEN,
+                 {"Transfer-Encoding": "chunked"}, None, 404,
+                 "no checkpoint at '/nonexistent/x.msgpack'", True,
+                 id="reload-malformed-chunk-size"),
+    pytest.param("POST", "/detect", _JPEG, {}, _no_cv2, 503,
+                 "cv2 is not available: the server cannot decode image bytes on this host", True,
+                 id="no-cv2"),
+    pytest.param("POST", "/detect", _JPEG, {}, _zero_submit_timeout, 503, "timeout", False,
+                 id="submit-timeout"),
+    pytest.param("POST", "/detect/stream", struct.pack(">I", SMALL_BODY + 1), {},
+                 _small_max_body, 200, f"bad frame length {SMALL_BODY + 1}", True,
+                 id="stream-frame-over-max-body"),
+    pytest.param("POST", "/detect/stream", struct.pack(">I", 1000) + b"\x00" * 10, {}, None,
+                 200, "truncated frame", True, id="stream-truncated-frame"),
+])
+def test_the_server_refuses_bad_input(tiny_v7_port, monkeypatch, method, path, body, headers,
+                                      patch, status, error, closes):
+    """Each refusal answers its status and JSON ``error`` (a stream: its first
+    line). Where the handler closes the connection (a body it did not read
+    or could not frame), the server closes it after the answer, and nothing
+    left on it is read as a request; elsewhere the connection stays open.
+    Either way the server then answers a good request: on a new connection,
+    or on the same one."""
+    srv, port = tiny_v7_port
+    if patch is not None:
+        patch(srv, monkeypatch)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request(method, path, body=body, headers=headers)
+        r = conn.getresponse()
+        answer = json.loads(r.read().decode().splitlines()[0])
+        assert r.status == status
+        assert answer == {"frame": 0, "error": error} if path.endswith("/stream") else \
+            answer["error"] == error
+        monkeypatch.undo()
+        if closes:
+            conn.sock.settimeout(60)
+            try:
+                assert conn.sock.recv(1) == b""
+            except ConnectionResetError:      # the server closed with the body unread
+                pass
+            conn.close()
+        conn.request("POST", "/detect", body=_JPEG)
+        r = conn.getresponse()
+        assert r.status == 200
+        assert set(json.loads(r.read())) == {"boxes", "scores", "classes", "labels"}
+    finally:
+        conn.close()
 
 
 def test_serve_cli_defaults_to_the_card(monkeypatch):

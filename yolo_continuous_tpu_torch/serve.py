@@ -50,8 +50,9 @@ Deliberate fixes of four faults of the JAX package's server:
    captured request, and the next batch captures it anew under the lock.
 3. An integer priority is clamped to ``PRIORITIES``' range.
 4. A ``/detect`` body is read through ``_BodyReader`` (Content-Length or
-   chunked); a body with neither header closes the connection after the
-   answer, so no unread bytes desync the next request.
+   chunked); a body with neither header, or one that ends before its
+   framing says (a malformed chunk size), closes the connection after the
+   answer, so no unread bytes desync the next request or parse as one.
 
 The watcher polls the file that ``Detector`` would read
 (``detect_api.weights_source``): the ``.pth`` beside the plan's
@@ -371,7 +372,10 @@ class BatchingEngine:
 
 class _BodyReader:
     """Exact-read view of an HTTP request body, Content-Length or
-    ``Transfer-Encoding: chunked`` (the standard library does not de-chunk)."""
+    ``Transfer-Encoding: chunked`` (the standard library does not de-chunk).
+    ``broken``: the body ended before its framing said (a malformed chunk
+    size, or the client stopped sending), so what follows on the connection
+    is not a request."""
 
     def __init__(self, rfile, headers):
         self._rfile = rfile
@@ -381,6 +385,7 @@ class _BodyReader:
         self._left = 0 if self._chunked else int(headers.get("Content-Length") or 0)
         self._chunk_left = 0
         self._eof = False
+        self.broken = False
 
     def _read_exact(self, n: int) -> bytes:
         out = b""
@@ -401,13 +406,14 @@ class _BodyReader:
             self._left -= len(out)
             if self._left <= 0 or len(out) < n:
                 self._eof = True
+                self.broken = len(out) < n
             return out
         out = b""
         while len(out) < n:
             if self._chunk_left == 0:
                 line = self._rfile.readline(130)
                 if not line:
-                    self._eof = True
+                    self._eof = self.broken = True
                     break
                 line = line.strip().split(b";")[0]
                 if not line:                      # CRLF between chunks
@@ -415,7 +421,7 @@ class _BodyReader:
                 try:
                     size = int(line, 16)
                 except ValueError:
-                    self._eof = True
+                    self._eof = self.broken = True
                     break
                 if size == 0:                     # last-chunk; trailers
                     while True:
@@ -430,7 +436,7 @@ class _BodyReader:
             out += part
             self._chunk_left -= len(part)
             if len(part) < take:
-                self._eof = True
+                self._eof = self.broken = True
                 break
         return out
 
@@ -529,6 +535,8 @@ def make_multi_server(models: dict, host: str = "127.0.0.1", port: int = 8100,
                 self.close_connection = True
             if parts[0] == "models" and len(parts) == 3 and parts[2] == "reload":
                 reader.drain()
+                if reader.broken:
+                    self.close_connection = True
                 self._reload(parts[1])
                 return
             stream = parts[-1] == "stream" and len(parts) >= 2
@@ -568,6 +576,8 @@ def make_multi_server(models: dict, host: str = "127.0.0.1", port: int = 8100,
                 self._stream(engine, reader, req_conf, priority)
                 return
             raw = reader.read(MAX_BODY + 1)
+            if reader.broken:
+                self.close_connection = True
             if len(raw) > MAX_BODY:
                 self.close_connection = True
                 self._json(413, {"error": f"image body over {MAX_BODY} bytes"})
